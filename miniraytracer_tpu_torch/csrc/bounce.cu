@@ -1,0 +1,834 @@
+// Fused wavefront render kernel for Hopper (sm_90a).
+//
+// Replaces the TPU kernel `miniraytracer_tpu/ops/bounce.py::_make_kernel`
+// (launched by `fused_render_blocks`). It computes what that kernel computes:
+// for each lane (one pixel), the reference's trace() body (main.cpp:66-118)
+// -- nearest hit over spheres, rects, triangles, boxes and volumes, material
+// dispatch, the 50/50 MIS light mixture, 7-octave Perlin -- then the
+// miss/emit/throughput advance, the draw2 merge with its NaN reuse and
+// luminance clamp (main.cpp:214-229), and regeneration with a new camera ray,
+// until the lane has rendered all its samples. The plain PyTorch version is
+// `miniraytracer_tpu_torch/ops/bounce.py` (`bounce_physics`, `wave_step`);
+// both use the same counter-keyed RNG slots, the same where-guards and eps
+// margins, and the same op order.
+//
+// Design. One thread per lane, 128-thread blocks, grid ceil(N/128). Each
+// thread loops the wave step until its own lane is no longer alive: a dead
+// lane's further masked steps (the TPU kernel runs them in (8,128) tiles,
+// COND_EVERY steps between checks) change only its depth and key, and the
+// contract is accum, count and rays. The first camera ray is built in the
+// kernel with the same formula as `models/camera.get_rays`.
+//
+// What bounds it on this card: per-lane ALU work (the hit sweep, shading
+// transcendentals, Perlin lookups) and warp divergence between lanes whose
+// paths end at different bounces; memory traffic is tiny. The whole path
+// state (~80 B: accum, ro, rd, time, beta, radiance, count, inside, depth,
+// key) stays in registers for the whole render; per lane the kernel reads
+// one pixel id and writes accum, count and rays (20 B) once. The scene
+// tables are a few KB of read-only floats read through const __restrict__
+// pointers in loops over run-time counts; they stay resident in L1.
+// Shared-memory staging, divergence control (path regeneration already
+// keeps a lane busy) and occupancy tuning are later work.
+//
+// Build: nvcc -O3 -std=c++17 -gencode arch=compute_90a,code=sm_90a
+//        --fmad=false (no --use_fast_math), see utils/kernels.py.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr double PI_D = 3.14159265358979323846;
+constexpr float PI_F = (float)PI_D;
+constexpr float TWO_PI_F = (float)(2.0 * PI_D);
+constexpr float INV_TWO_PI_F = (float)(1.0 / (2.0 * PI_D));
+constexpr float INF = 3.0e38f;
+constexpr float NEG = -3.0e38f;
+constexpr float TMIN = 0.001f;
+constexpr float TRI_EPS = 1e-5f;
+// the JAX source writes these as 1.0 - 1e-9 and 1.0 - 1e-12 in double,
+// which round to 1.0f in float32
+constexpr float ONE_M_1EM9 = (float)(1.0 - 1e-9);
+constexpr float ONE_M_1EM12 = (float)(1.0 - 1e-12);
+constexpr int PERLIN_DEPTH = 7;
+
+constexpr int MAT_METAL = 1, MAT_DIELECTRIC = 2, MAT_DIFFUSE_LIGHT = 3,
+              MAT_ISOTROPIC = 4;
+constexpr int TEX_CHECKER = 1, TEX_PERLIN = 2;
+constexpr int PRIM_SPHERE = 0;
+constexpr int VOLB_SPHERE = 0;
+
+constexpr uint32_t SLOT_VOL = 0, SLOT_MIX = 8, SLOT_LPICK = 9, SLOT_LA = 10,
+                   SLOT_LB = 11, SLOT_MA = 12, SLOT_MB = 13, SLOT_FUZZ = 14,
+                   SLOT_FRESNEL = 17;
+constexpr uint32_t CAM_FOLD = 0x0C0FFEEu;
+constexpr uint32_t M1 = 0x9E3779B1u, M2 = 0x85EBCA77u, M3 = 0xC2B2AE3Du;
+
+constexpr int MAX_LIGHTS = 4;
+
+// Integer parameter block, in the order ops/bounce.py::_launch_kernel packs it.
+enum ParamIdx {
+  P_N, P_WIDTH, P_HEIGHT, P_SQ, P_MAX_BOUNCES, P_SAMPLE_LO, P_N_SAMPLES,
+  P_S, P_R, P_TC, P_BX, P_V, P_M, P_X, P_NLIGHTS,
+  P_LTYPE, P_LIDX = P_LTYPE + MAX_LIGHTS, P_USE_SKY = P_LIDX + MAX_LIGHTS,
+  P_EXACT_COS, P_PERLIN, P_COUNT
+};
+static_assert(P_COUNT == 26, "parameter block size");
+
+struct Params {
+  int n, width, height, sq, max_bounces, sample_lo, n_samples;
+  int S, R, Tc, Bx, V, M, X, n_lights;
+  int ltype[MAX_LIGHTS], lidx[MAX_LIGHTS];
+  int use_sky, exact_cos, perlin;
+  float max_lum;
+};
+
+struct Tables {
+  const float* __restrict__ sph;
+  const float* __restrict__ rect;
+  const float* __restrict__ tri;
+  const float* __restrict__ box;
+  const float* __restrict__ vol;
+  const float* __restrict__ mat;
+  const float* __restrict__ tex;
+  const float* __restrict__ cam;
+  const float* __restrict__ ptab;  // (6, 256): px py pz gx gy gz
+};
+
+// ---------------------------------------------------------------------------
+// Vector math (ops/vecmath.py); sums in the JAX order ((x + y) + z)
+// ---------------------------------------------------------------------------
+
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V3 v3(float x, float y, float z) { return V3{x, y, z}; }
+__device__ __forceinline__ V3 operator+(V3 a, V3 b) { return v3(a.x + b.x, a.y + b.y, a.z + b.z); }
+__device__ __forceinline__ V3 operator-(V3 a, V3 b) { return v3(a.x - b.x, a.y - b.y, a.z - b.z); }
+__device__ __forceinline__ V3 operator*(V3 a, V3 b) { return v3(a.x * b.x, a.y * b.y, a.z * b.z); }
+__device__ __forceinline__ V3 operator*(V3 a, float s) { return v3(a.x * s, a.y * s, a.z * s); }
+__device__ __forceinline__ V3 operator-(V3 a) { return v3(-a.x, -a.y, -a.z); }
+
+__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+
+__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+  return v3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x);
+}
+
+__device__ __forceinline__ V3 normalize(V3 a) {
+  float n2 = dot(a, a);
+  float inv = n2 > 1e-20f ? 1.0f / sqrtf(n2) : 0.0f;
+  return a * inv;
+}
+
+__device__ __forceinline__ V3 load3(const float* __restrict__ t, int i) {
+  return v3(t[i], t[i + 1], t[i + 2]);
+}
+
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+// ---------------------------------------------------------------------------
+// Counter-based RNG (ops/rng.py), native uint32
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t pcg_hash(uint32_t x) {
+  uint32_t s = x * 747796405u + 2891336453u;
+  uint32_t w = ((s >> ((s >> 28u) + 4u)) ^ s) * 277803737u;
+  return (w >> 22u) ^ w;
+}
+
+__device__ __forceinline__ uint32_t fold(uint32_t key, uint32_t data) {
+  return pcg_hash(key * M1 + data * M2 + M3);
+}
+
+__device__ __forceinline__ float uniform(uint32_t key, uint32_t slot) {
+  uint32_t b = pcg_hash(key + slot * M3);
+  return __uint_as_float((b & 0x007FFFFFu) | 0x3F800000u) - 1.0f;
+}
+
+__device__ __forceinline__ uint32_t ray_key(uint32_t pix, uint32_t samp) {
+  return pcg_hash(pcg_hash(pix * M1 + 0x1234567u) + samp * M2);
+}
+
+// ---------------------------------------------------------------------------
+// Samplers (ops/bounce.py helpers)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void onb_from_w(V3 n, V3& u, V3& v) {
+  bool big_x = fabsf(n.x) > 0.9f;
+  V3 a = v3(big_x ? 0.0f : 1.0f, big_x ? 1.0f : 0.0f, 0.0f);
+  v = normalize(cross(n, a));
+  u = cross(n, v);
+}
+
+__device__ __forceinline__ V3 sample_on_sphere(float r1, float r2) {
+  float x = r1 * 2.0f - 1.0f;
+  float phi = r2 * 2.0f * PI_F;
+  float s = sqrtf(fmaxf(1.0f - x * x, 0.0f));
+  return v3(x, cosf(phi) * s, sinf(phi) * s);
+}
+
+__device__ __forceinline__ V3 sample_cosine(float r1, float r2, bool exact) {
+  float z = sqrtf(fmaxf(1.0f - r2, 0.0f));
+  float phi = TWO_PI_F * r1;
+  float sq = (exact ? 1.0f : 2.0f) * sqrtf(r2);
+  return v3(cosf(phi) * sq, sinf(phi) * sq, z);
+}
+
+// cube root as exp(log(r)/3), as the fused JAX kernel computes it
+__device__ __forceinline__ V3 sample_in_ball(float r1, float r2, float r3) {
+  V3 d = sample_on_sphere(r1, r2);
+  float r3s = fmaxf(r3, 1e-30f);
+  return d * expf(logf(r3s) * (float)(1.0 / 3.0));
+}
+
+__device__ __forceinline__ float schlick(float cosine, float ref_index) {
+  float r0 = (1.0f - ref_index) / (1.0f + ref_index);
+  r0 = r0 * r0;
+  float c = 1.0f - cosine;
+  float c2 = c * c;
+  return r0 + (1.0f - r0) * (c * (c2 * c2));  // (1-c)^5 as XLA expands it
+}
+
+// 7-octave Perlin turbulence (texture.cpp:68-165) from the 256-entry tables
+__device__ float turbulence(const float* __restrict__ ptab, V3 p) {
+  float acc_t = 0.0f;
+  float weight = 1.0f;
+  float c[3] = {p.x, p.y, p.z};
+  for (int oct = 0; oct < PERLIN_DEPTH; ++oct) {
+    int ic[3];
+    float fr[3], h[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      float pf = floorf(c[a]);
+      fr[a] = c[a] - pf;
+      h[a] = fr[a] * fr[a] * (3.0f - 2.0f * fr[a]);
+      ic[a] = (int)pf;
+    }
+    int pv[6];  // x0 x1 y0 y1 z0 z1
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      pv[2 * a] = (int)ptab[a * 256 + (ic[a] & 255)];
+      pv[2 * a + 1] = (int)ptab[a * 256 + ((ic[a] + 1) & 255)];
+    }
+    float acc = 0.0f;
+#pragma unroll
+    for (int di = 0; di < 2; ++di) {
+      float ax = di ? h[0] : 1.0f - h[0];
+      float wx = fr[0] - (float)di;
+#pragma unroll
+      for (int dj = 0; dj < 2; ++dj) {
+        float ay = dj ? h[1] : 1.0f - h[1];
+        float wy = fr[1] - (float)dj;
+#pragma unroll
+        for (int dk = 0; dk < 2; ++dk) {
+          float az = dk ? h[2] : 1.0f - h[2];
+          float wz = fr[2] - (float)dk;
+          int gi = pv[di] ^ pv[2 + dj] ^ pv[4 + dk];
+          float d = ptab[3 * 256 + gi] * wx + ptab[4 * 256 + gi] * wy +
+                    ptab[5 * 256 + gi] * wz;
+          acc = acc + ax * ay * az * d;
+        }
+      }
+    }
+    acc_t = acc_t + weight * acc;
+    weight *= 0.5f;
+    c[0] = c[0] * 2.0f;
+    c[1] = c[1] * 2.0f;
+    c[2] = c[2] * 2.0f;
+  }
+  return fabsf(acc_t);
+}
+
+// ---------------------------------------------------------------------------
+// Scene tables (layout of ops/bounce.py::pack_scene)
+// ---------------------------------------------------------------------------
+
+// moving-sphere centre pieces: c0, c1 and the lerp fraction at `time`
+__device__ __forceinline__ void sphere_center(const float* __restrict__ sph, int S, int si,
+                                              float time, V3& c0, V3& c1, float& fmv) {
+  c0 = load3(sph, 3 * si);
+  c1 = load3(sph, 3 * S + 3 * si);
+  int o = 6 * S;
+  float t0s = sph[o + si], t1s = sph[o + S + si], mov = sph[o + 2 * S + si];
+  float denom = mov > 0 ? t1s - t0s : 1.0f;
+  fmv = mov > 0 ? (time - t0s) / denom : 0.0f;
+}
+
+struct RectRow {
+  V3 ei, ej, ek;
+  float kk, i0, i1, j0, j1, sgn;
+};
+
+__device__ __forceinline__ RectRow rect_row(const float* __restrict__ rect, int R, int ri) {
+  RectRow r;
+  r.ei = load3(rect, 3 * ri);
+  r.ej = load3(rect, 3 * R + 3 * ri);
+  r.ek = load3(rect, 6 * R + 3 * ri);
+  int o = 9 * R;
+  r.kk = rect[o + ri];
+  r.i0 = rect[o + R + ri];
+  r.i1 = rect[o + 2 * R + ri];
+  r.j0 = rect[o + 3 * R + ri];
+  r.j1 = rect[o + 4 * R + ri];
+  r.sgn = rect[o + 5 * R + ri];
+  return r;
+}
+
+__device__ __forceinline__ float slab_inv(float da) {
+  return 1.0f / (fabsf(da) > 1e-12f ? da : (da >= 0.0f ? 1e-12f : -1e-12f));
+}
+
+// the face axes (a, b, c) of slab test `ax`: (0,1,2), (1,0,2), (2,0,1); with
+// the loops unrolled they fold to constants and the 3-arrays stay in registers
+__device__ __forceinline__ int axis_b(int ax) { return ax == 0 ? 1 : 0; }
+__device__ __forceinline__ int axis_c(int ax) { return ax == 2 ? 1 : 2; }
+
+// ---------------------------------------------------------------------------
+// One bounce (ops/bounce.py::bounce_physics). Shading is computed only for
+// the branch the lane takes: the JAX version computes every branch and
+// selects, and the RNG is stateless, so the selected values are the same.
+// ---------------------------------------------------------------------------
+
+struct Bounce {
+  bool hit, is_light, is_specular;
+  V3 p, emitted, weight, new_rd;
+  int new_inside;
+};
+
+__device__ Bounce bounce_physics(const Tables& tb, const Params& P, V3 ro, V3 rd,
+                                 float time, int inside, uint32_t keys_b) {
+  const int S = P.S, R = P.R, Tc = P.Tc, Bx = P.Bx, V = P.V;
+  float best_t = INF;
+  V3 w_n = v3(1.0f, 0.0f, 0.0f);
+  int w_mat = 0;
+
+  // --- spheres (sphere.cpp:13-46); tie rule: sphere first, so '<' ---
+  for (int si = 0; si < S; ++si) {
+    V3 c0, c1;
+    float fmv;
+    sphere_center(tb.sph, S, si, time, c0, c1, fmv);
+    int o = 6 * S;
+    float rad = tb.sph[o + 3 * S + si];
+    float matid = tb.sph[o + 4 * S + si], act = tb.sph[o + 5 * S + si];
+    V3 cen = v3(c0.x + fmv * (c1.x - c0.x), c0.y + fmv * (c1.y - c0.y),
+                c0.z + fmv * (c1.z - c0.z));
+    V3 oc = ro - cen;
+    float b = dot(oc, rd);
+    float c = dot(oc, oc) - rad * rad;
+    float disc = b * b - c;
+    float sqd = sqrtf(disc > 0.0f ? disc : 1.0f);
+    float t_front = -b - sqd;
+    float t_back = -b + sqd;
+    bool ok = disc > 0.0f && act > 0.0f;
+    bool front_ok = ok && t_front > TMIN && t_front < best_t;
+    bool back_ok = ok && inside > 0 && t_back > TMIN && t_back < best_t;
+    if (front_ok || back_ok) {
+      float tc = front_ok ? t_front : t_back;
+      V3 p_hit = ro + rd * tc;
+      float safe_rad = fabsf(rad) > 1e-20f ? rad : 1.0f;
+      w_n = normalize((p_hit - cen) * (1.0f / safe_rad));
+      best_t = tc;
+      w_mat = (int)matid;
+    }
+  }
+
+  // --- rects (rect.cpp, one-sided) ---
+  for (int ri = 0; ri < R; ++ri) {
+    RectRow r = rect_row(tb.rect, R, ri);
+    float matid = tb.rect[15 * R + ri], act = tb.rect[16 * R + ri];
+    float dk = dot(r.ek, rd);
+    bool facing = dk * r.sgn <= 0.0f;
+    float dk_safe = fabsf(dk) > 1e-30f ? dk : 1e-30f;
+    float t = (r.kk - dot(r.ek, ro)) / dk_safe;
+    float iiv = dot(r.ei, ro) + t * dot(r.ei, rd);
+    float jjv = dot(r.ej, ro) + t * dot(r.ej, rd);
+    if (facing && t >= TMIN && t < best_t && act > 0.0f && iiv >= r.i0 &&
+        iiv <= r.i1 && jjv >= r.j0 && jjv <= r.j1) {
+      best_t = t;
+      w_n = v3(0.0f + r.ek.x * r.sgn, 0.0f + r.ek.y * r.sgn, 0.0f + r.ek.z * r.sgn);
+      w_mat = (int)matid;
+    }
+  }
+
+  // --- triangles (triangle.cpp:221-264) ---
+  for (int ti = 0; ti < Tc; ++ti) {
+    V3 mT = load3(tb.tri, 3 * ti), uT = load3(tb.tri, 3 * Tc + 3 * ti),
+       vT = load3(tb.tri, 6 * Tc + 3 * ti);
+    float matid = tb.tri[18 * Tc + ti], act = tb.tri[19 * Tc + ti];
+    V3 pv = cross(rd, vT);
+    float det = dot(uT, pv);
+    float sgn = (inside > 0 && det < 0.0f) ? -1.0f : 1.0f;
+    float dets = det * sgn;
+    V3 tv = ro - mT;
+    float uu = dot(tv, pv) * sgn;
+    V3 qv = cross(tv, uT);
+    float vv = dot(rd, qv) * sgn;
+    float safe_det = dets > TRI_EPS ? dets : 1.0f;
+    float t = dot(vT, qv) / safe_det * sgn;
+    if (dets >= TRI_EPS && uu >= 0.0f && uu <= dets && vv >= 0.0f &&
+        uu + vv <= dets && t >= TMIN && t < best_t && act > 0.0f) {
+      V3 mn = load3(tb.tri, 9 * Tc + 3 * ti), un = load3(tb.tri, 12 * Tc + 3 * ti),
+         vn = load3(tb.tri, 15 * Tc + 3 * ti);
+      float inv = 1.0f / safe_det;
+      float uun = uu * inv;
+      float vvn = vv * inv;
+      w_n = normalize(mn * (1.0f - uun - vvn) + un * uun + vn * vvn);
+      best_t = t;
+      w_mat = (int)matid;
+    }
+  }
+
+  // --- boxes (box.h: 6 outward one-sided rects as one prim; rotate_y +
+  // translate baked as sin/cos/offset; a ray inside sees nothing) ---
+  for (int bi = 0; bi < Bx; ++bi) {
+    const float* box = tb.box;
+    float blo[3] = {box[3 * bi], box[3 * bi + 1], box[3 * bi + 2]};
+    float bhi[3] = {box[3 * Bx + 3 * bi], box[3 * Bx + 3 * bi + 1], box[3 * Bx + 3 * bi + 2]};
+    float sinb = box[6 * Bx + 2 * bi], cosb = box[6 * Bx + 2 * bi + 1];
+    V3 offb = load3(box, 8 * Bx + 3 * bi);
+    float matid = box[11 * Bx + bi], act = box[12 * Bx + bi];
+    V3 rol = ro - offb;
+    float bl[3] = {cosb * rol.x - sinb * rol.z, rol.y, cosb * rol.z + sinb * rol.x};
+    float bd[3] = {cosb * rd.x - sinb * rd.z, rd.y, cosb * rd.z + sinb * rd.x};
+    float tb_ = INF;
+    int nax = 0;
+    float nsg = 0.0f;
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      int a = ax, b_ = axis_b(ax), c_ = axis_c(ax);
+      float da = bd[a];
+      float invd = slab_inv(da);
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        float bound = side ? bhi[a] : blo[a];
+        bool face_ok = side ? da < 0.0f : da > 0.0f;
+        float tf = (bound - bl[a]) * invd;
+        float pb = bl[b_] + tf * bd[b_];
+        float pc = bl[c_] + tf * bd[c_];
+        if (face_ok && tf >= TMIN && tf < tb_ && pb >= blo[b_] && pb <= bhi[b_] &&
+            pc >= blo[c_] && pc <= bhi[c_]) {
+          tb_ = tf;
+          nax = a;
+          nsg = side ? 1.0f : -1.0f;
+        }
+      }
+    }
+    if (tb_ < best_t && act > 0.0f) {
+      float nlx = nax == 0 ? nsg : 0.0f;
+      float nly = nax == 1 ? nsg : 0.0f;
+      float nlz = nax == 2 ? nsg : 0.0f;
+      w_n = v3(cosb * nlx + sinb * nlz, nly, cosb * nlz - sinb * nlx);
+      best_t = tb_;
+      w_mat = (int)matid;
+    }
+  }
+
+  // --- volumes (volumes.cpp:5-36, one-sided quirks preserved) ---
+  for (int vi = 0; vi < V; ++vi) {
+    const float* bp = tb.vol + 12 * vi;
+    float btype = tb.vol[12 * V + vi], dens = tb.vol[13 * V + vi];
+    float vmat = tb.vol[14 * V + vi], vact = tb.vol[15 * V + vi];
+    float cands[6];
+    if (btype == (float)VOLB_SPHERE) {
+      V3 oc = ro - load3(bp, 0);
+      float b = dot(oc, rd);
+      float c = dot(oc, oc) - bp[3] * bp[3];
+      float disc = b * b - c;
+      float sqd = sqrtf(disc > 0.0f ? disc : 1.0f);
+      bool s_ok = disc > 0.0f;
+      cands[0] = s_ok ? -b - sqd : INF;
+      cands[1] = (s_ok && inside > 0) ? -b + sqd : INF;
+#pragma unroll
+      for (int k = 2; k < 6; ++k) cands[k] = INF;
+    } else {
+      float sin_t = bp[6], cos_t = bp[7];
+      V3 rol = ro - load3(bp, 8);
+      float bl[3] = {cos_t * rol.x - sin_t * rol.z, rol.y, cos_t * rol.z + sin_t * rol.x};
+      float bd[3] = {cos_t * rd.x - sin_t * rd.z, rd.y, cos_t * rd.z + sin_t * rd.x};
+#pragma unroll
+      for (int ax = 0; ax < 3; ++ax) {
+        int a = ax, b_ = axis_b(ax), c_ = axis_c(ax);
+        float da = bd[a];
+        float invd = slab_inv(da);
+#pragma unroll
+        for (int side = 0; side < 2; ++side) {
+          float bound = side ? bp[3 + a] : bp[a];
+          bool face_ok = side ? da < 0.0f : da > 0.0f;
+          float tf = (bound - bl[a]) * invd;
+          float pb = bl[b_] + tf * bd[b_];
+          float pc = bl[c_] + tf * bd[c_];
+          bool okf = face_ok && pb >= bp[b_] && pb <= bp[3 + b_] && pc >= bp[c_] &&
+                     pc <= bp[3 + c_];
+          cands[2 * ax + side] = okf ? tf : INF;
+        }
+      }
+    }
+    float rec1 = cands[0];
+#pragma unroll
+    for (int k = 1; k < 6; ++k) rec1 = fminf(rec1, cands[k]);
+    bool got1 = rec1 < INF;
+    float rec2 = INF;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) rec2 = fminf(rec2, cands[k] > rec1 + 1e-4f ? cands[k] : INF);
+    bool got2 = rec2 < INF;
+    float rec1c = fmaxf(got1 ? rec1 : NEG, TMIN);
+    float rec2c = fminf(got2 ? rec2 : NEG, best_t);
+    if (got1 && got2 && rec1c < rec2c && vact > 0.0f) {
+      float inside_dist = rec2c - rec1c;
+      float uv = clampf(uniform(keys_b, SLOT_VOL + (uint32_t)vi), 1e-38f, 1.0f);
+      float hit_dist = -(1.0f / dens) * logf(uv);
+      float tvol = rec1c + hit_dist;
+      if (hit_dist < inside_dist && tvol < best_t) {
+        best_t = tvol;
+        w_n = v3(1.0f, 0.0f, 0.0f);
+        w_mat = (int)vmat;
+      }
+    }
+  }
+
+  Bounce out;
+  out.hit = best_t < INF;
+  out.is_light = false;
+  out.is_specular = false;
+  out.new_inside = 0;
+  if (!out.hit) return out;  // a miss is shaded by the background only
+  const float safe_t = best_t;
+  const V3 p = ro + rd * safe_t;
+  const V3 nrm = w_n;
+  out.p = p;
+
+  // ---------------- shade (materials.shade, exact slots) -------------
+  float mtype = 0.0f, mparam = 0.0f, tex_id = 0.0f;
+  if (w_mat >= 0 && w_mat < P.M) {
+    mtype = tb.mat[w_mat];
+    mparam = tb.mat[P.M + w_mat];
+    tex_id = tb.mat[2 * P.M + w_mat];
+  }
+  const int X = P.X;
+  int xi = (int)tex_id;
+  float ttype = 0.0f, tscale = 0.0f;
+  V3 c0 = v3(0.0f, 0.0f, 0.0f), c1 = v3(0.0f, 0.0f, 0.0f);
+  if ((float)xi == tex_id && xi >= 0 && xi < X) {
+    ttype = tb.tex[xi];
+    c0 = load3(tb.tex, X + 3 * xi);
+    c1 = load3(tb.tex, 4 * X + 3 * xi);
+    tscale = tb.tex[7 * X + xi];
+  }
+  V3 albedo = c0;
+  if (ttype == (float)TEX_CHECKER) {
+    float sines = sinf(tscale * p.x) * sinf(tscale * p.y) * sinf(tscale * p.z);
+    if (sines < 0.0f) albedo = c1;
+  }
+  if (P.perlin && ttype == (float)TEX_PERLIN) {
+    float turb = turbulence(tb.ptab, v3(p.x * tscale, p.y * tscale, p.z * tscale));
+    albedo = v3(turb, turb, turb);
+  }
+
+  out.is_light = mtype == (float)MAT_DIFFUSE_LIGHT;
+  out.emitted = (out.is_light && dot(nrm, rd) < 0.0f) ? albedo * mparam : v3(0.0f, 0.0f, 0.0f);
+  if (out.is_light) return out;  // lights emit and never scatter
+
+  const bool is_metal = mtype == (float)MAT_METAL;
+  const bool is_diel = mtype == (float)MAT_DIELECTRIC;
+  out.is_specular = is_metal || is_diel;
+
+  if (is_metal) {
+    V3 refl = rd - nrm * (2.0f * dot(rd, nrm));
+    V3 fuzz = sample_in_ball(uniform(keys_b, SLOT_FUZZ), uniform(keys_b, SLOT_FUZZ + 1),
+                             uniform(keys_b, SLOT_FUZZ + 2));
+    out.new_rd = normalize(refl + fuzz * (1.0f - mparam));
+    out.weight = albedo;
+    return out;
+  }
+
+  if (is_diel) {
+    V3 refl = rd - nrm * (2.0f * dot(rd, nrm));
+    float ref_idx = mparam;
+    float cosI = -dot(rd, nrm);
+    bool entering = cosI >= 0.0f;
+    V3 facing_n = entering ? nrm : -nrm;
+    float ni_over_nt = entering ? 1.0f / ref_idx : ref_idx;
+    float ncosI = dot(rd, facing_n);
+    float sinT2 = (ni_over_nt * ni_over_nt) * (1.0f - ncosI * ncosI);
+    bool can_refract = sinT2 <= 1.0f;
+    bool safe_r = sinT2 < ONE_M_1EM9;
+    float cosT = safe_r ? sqrtf(1.0f - sinT2) : 0.0f;
+    V3 refracted = rd * ni_over_nt + facing_n * (ni_over_nt * (-ncosI) - cosT);
+    float cs_arg = clampf(1.0f - ni_over_nt * ni_over_nt * (1.0f - cosI * cosI), 0.0f, 1.0f);
+    float cos_schlick = entering ? cosI : (cs_arg > 1e-12f ? sqrtf(cs_arg) : 0.0f);
+    float reflect_prob = can_refract ? schlick(cos_schlick, ref_idx) : 1.0f;
+    bool do_reflect = uniform(keys_b, SLOT_FRESNEL) < reflect_prob;
+    out.new_rd = do_reflect ? normalize(refl) : normalize(refracted);
+    int inside_after = entering ? inside + 1 : max(inside - 1, 0);
+    out.new_inside = do_reflect ? inside : inside_after;
+    out.weight = v3(1.0f, 1.0f, 1.0f);
+    return out;
+  }
+
+  // lambertian / isotropic: mixture of the material lobe and the lights
+  const bool is_iso = mtype == (float)MAT_ISOTROPIC;
+  float u_ma = uniform(keys_b, SLOT_MA);
+  float u_mb = uniform(keys_b, SLOT_MB);
+  V3 mat_gen;
+  if (is_iso) {
+    mat_gen = sample_on_sphere(u_ma, u_mb);
+  } else {
+    V3 uo, vo;
+    onb_from_w(nrm, uo, vo);
+    V3 loc = sample_cosine(u_ma, u_mb, P.exact_cos != 0);
+    mat_gen = uo * loc.x + vo * loc.y + nrm * loc.z;
+  }
+
+  V3 d;
+  float pdf_v;
+  if (P.n_lights > 0) {
+    const int nL = P.n_lights;
+    float u_mix = uniform(keys_b, SLOT_MIX);
+    float u_pick = uniform(keys_b, SLOT_LPICK);
+    float u_a = uniform(keys_b, SLOT_LA);
+    float u_b = uniform(keys_b, SLOT_LB);
+    V3 gen = mat_gen;
+    if (u_mix < 0.5f) {
+      int li = min(max((int)(u_pick * (float)nL), 0), nL - 1);
+      int lidx = P.lidx[li];
+      if (P.ltype[li] == PRIM_SPHERE) {
+        V3 c0l, c1l;
+        float fmv;
+        sphere_center(tb.sph, S, lidx, time, c0l, c1l, fmv);
+        float radl = tb.sph[9 * S + lidx];
+        V3 cenl = c0l + (c1l - c0l) * fmv;
+        V3 to_c = cenl - p;
+        float dist_sq = dot(to_c, to_c);
+        V3 wl = normalize(to_c), ul, vl;
+        onb_from_w(wl, ul, vl);
+        float frac = clampf(1.0f - radl * radl / fmaxf(dist_sq, 1e-30f), 0.0f, 1.0f);
+        float sqf = frac > 1e-12f ? sqrtf(frac) : 0.0f;
+        float z = 1.0f + u_b * (sqf - 1.0f);
+        float phi = TWO_PI_F * u_a;
+        float z2 = z * z;
+        float sl = z2 < ONE_M_1EM12 ? sqrtf(1.0f - z2) : 0.0f;
+        gen = ul * (cosf(phi) * sl) + vl * (sinf(phi) * sl) + wl * z;
+      } else {
+        RectRow r = rect_row(tb.rect, R, lidx);
+        float iil = r.i0 + u_a * (r.i1 - r.i0);
+        float jjl = r.j0 + u_b * (r.j1 - r.j0);
+        gen = (r.ei * iil + r.ej * jjl + r.ek * r.kk) - p;
+      }
+    }
+    d = normalize(gen);
+    // light pdf value: average over the lights
+    float lpv = 0.0f;
+    for (int li = 0; li < nL; ++li) {
+      int lidx = P.lidx[li];
+      if (P.ltype[li] == PRIM_SPHERE) {
+        V3 c0l, c1l;
+        float fmv;
+        sphere_center(tb.sph, S, lidx, time, c0l, c1l, fmv);
+        float radl = tb.sph[9 * S + lidx];
+        V3 cenl = c0l + (c1l - c0l) * fmv;
+        V3 oc = p - cenl;
+        float b = dot(oc, d);
+        float c = dot(oc, oc) - radl * radl;
+        float disc = b * b - c;
+        float sqd = sqrtf(disc > 0.0f ? disc : 1.0f);
+        bool hitl = disc > 0.0f && -b - sqd > TMIN;
+        V3 to_c = cenl - p;
+        float dist_sq = dot(to_c, to_c);
+        float cm_arg = clampf(1.0f - radl * radl / fmaxf(dist_sq, 1e-30f), 0.0f, 1.0f);
+        float cos_max = cm_arg > 1e-12f ? sqrtf(cm_arg) : 0.0f;
+        float sa = TWO_PI_F * (1.0f - cos_max);
+        if (hitl && sa > 0.0f) lpv = lpv + 1.0f / fmaxf(sa, 1e-12f);
+      } else {
+        RectRow r = rect_row(tb.rect, R, lidx);
+        float dk = dot(r.ek, d);
+        bool facing = dk * r.sgn <= 0.0f;
+        float dk_safe = fabsf(dk) > 1e-30f ? dk : 1e-30f;
+        float t = (r.kk - dot(r.ek, p)) / dk_safe;
+        float iiv = dot(r.ei, p) + t * dot(r.ei, d);
+        float jjv = dot(r.ej, p) + t * dot(r.ej, d);
+        if (facing && t >= TMIN && iiv >= r.i0 && iiv <= r.i1 && jjv >= r.j0 && jjv <= r.j1) {
+          float area = (r.i1 - r.i0) * (r.j1 - r.j0);
+          float cosine = fabsf(dot(d, r.ek) * r.sgn);
+          lpv = lpv + t * t / fmaxf(cosine * area, 1e-12f);
+        }
+      }
+    }
+    lpv = lpv / (float)nL;
+    float cosd = dot(nrm, d);
+    float mat_pdf_v = is_iso ? INV_TWO_PI_F : (cosd > 0.0f ? cosd / PI_F : 0.0f);
+    pdf_v = 0.5f * lpv + 0.5f * mat_pdf_v;
+  } else {
+    d = normalize(mat_gen);
+    float cosd = dot(nrm, d);
+    pdf_v = is_iso ? INV_TWO_PI_F : (cosd > 0.0f ? cosd / PI_F : 0.0f);
+  }
+  float scatter_pdf = is_iso ? INV_TWO_PI_F : fmaxf(dot(nrm, d), 0.0f) / PI_F;
+  out.weight = albedo * (pdf_v > 1e-12f ? scatter_pdf / pdf_v : 0.0f);
+  out.new_rd = d;
+  return out;
+}
+
+// thin-lens + shutter camera ray (models/camera.get_rays, camera.h:38-45)
+__device__ __forceinline__ void camera_ray(const float* __restrict__ cam, float ss, float tt,
+                                           uint32_t key, V3& ro, V3& rd, float& time) {
+  uint32_t kc = fold(key, CAM_FOLD);
+  float u1 = uniform(kc, 0), u2 = uniform(kc, 1), u3 = uniform(kc, 2);
+  float radd = sqrtf(u1);
+  float phid = TWO_PI_F * u2;
+  float lens_r = cam[18];
+  float dx = radd * cosf(phid) * lens_r;
+  float dy = radd * sinf(phid) * lens_r;
+  V3 offset = load3(cam, 12) * dx + load3(cam, 15) * dy;
+  time = cam[19] + (cam[20] - cam[19]) * u3;
+  ro = load3(cam, 0) + offset;
+  rd = normalize(v3(cam[3] + cam[6] * ss + cam[9] * tt - cam[0] - offset.x,
+                    cam[4] + cam[7] * ss + cam[10] * tt - cam[1] - offset.y,
+                    cam[5] + cam[8] * ss + cam[11] * tt - cam[2] - offset.z));
+}
+
+struct Lane {
+  V3 accum, ro, rd, beta, rad;
+  float time;
+  int count, inside, depth;
+  uint32_t key;
+};
+
+// start absolute sample `sample_lo + count` of pixel `pix` (regeneration)
+__device__ __forceinline__ void start_sample(const Tables& tb, const Params& P, uint32_t pix,
+                                             Lane& s) {
+  int samp = P.sample_lo + s.count;
+  s.key = ray_key(pix, (uint32_t)samp);
+  int ci = min(max(samp, 0), P.sq * P.sq - 1);
+  float off_x = ((float)(ci / P.sq) + 0.5f) / (float)P.sq;
+  float off_y = ((float)(ci % P.sq) + 0.5f) / (float)P.sq;
+  float xpix = (float)(pix % (uint32_t)P.width);
+  float ypix = (float)(pix / (uint32_t)P.width);
+  float ss = (xpix + off_x) / (float)P.width;
+  float tt = (ypix + off_y) / (float)P.height;
+  camera_ray(tb.cam, ss, tt, s.key, s.ro, s.rd, s.time);
+  s.inside = 0;
+  s.beta = v3(1.0f, 1.0f, 1.0f);
+  s.rad = v3(0.0f, 0.0f, 0.0f);
+  s.depth = 0;
+}
+
+__global__ void __launch_bounds__(128)
+fused_render_kernel(Tables tb, Params P, const int* __restrict__ pix_in,
+                    float* __restrict__ accum_out, int* __restrict__ count_out,
+                    int* __restrict__ rays_out) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= P.n) return;
+  const uint32_t pix = (uint32_t)pix_in[lane];
+  Lane s;
+  s.accum = v3(0.0f, 0.0f, 0.0f);
+  s.count = 0;
+  int rays = 0;
+  bool alive = P.n_samples > 0;
+  if (alive) start_sample(tb, P, pix, s);
+  while (alive) {
+    // one wave step (ops/bounce.py::wave_step) on a live lane
+    ++rays;
+    uint32_t keys_b = fold(s.key, (uint32_t)s.depth);
+    bool depth_ok = s.depth < P.max_bounces;
+    Bounce b = bounce_physics(tb, P, s.ro, s.rd, s.time, s.inside, keys_b);
+    bool scattered = depth_ok && !b.is_light;
+    bool add_emitted = !(scattered && b.is_specular);
+    if (!b.hit) {
+      // sky gradient or black (main.cpp:110-116); black is still multiplied
+      // in, as in the plain version, so a non-finite throughput shows
+      V3 bg = v3(0.0f, 0.0f, 0.0f);
+      if (P.use_sky) {
+        float tsky = 0.5f * (s.rd.y + 1.0f);
+        bg = v3((1.0f - tsky) + tsky * 0.5f, (1.0f - tsky) + tsky * 0.7f,
+                (1.0f - tsky) + tsky * 1.0f);
+      }
+      s.rad = s.rad + s.beta * bg;
+    } else if (add_emitted) {
+      s.rad = s.rad + s.beta * b.emitted;
+    }
+    bool cont = b.hit && scattered;
+    if (cont) {
+      s.beta = s.beta * b.weight;
+      cont = s.beta.x > 0.0f || s.beta.y > 0.0f || s.beta.z > 0.0f;
+    }
+    if (cont) {
+      s.ro = b.p;
+      s.rd = b.new_rd;
+      s.inside = b.new_inside;
+      s.depth += 1;
+      continue;
+    }
+    // finished: draw2 merge with NaN reuse and luminance clamp
+    float cnt_f = (float)s.count;
+    bool has_prev = s.count > 0;
+    float inv_prev = 1.0f / fmaxf(cnt_f, 1.0f);
+    V3 prev_avg = has_prev ? s.accum * inv_prev : v3(0.0f, 0.0f, 0.0f);
+    bool finite = isfinite(s.rad.x) && isfinite(s.rad.y) && isfinite(s.rad.z);
+    V3 color = finite ? s.rad : prev_avg;
+    V3 new_avg = has_prev ? prev_avg + (color - prev_avg) * (1.0f / (cnt_f + 1.0f)) : color;
+    float lum = 0.212655f * new_avg.x + 0.715158f * new_avg.y + 0.072187f * new_avg.z;
+    float lscale = lum > P.max_lum ? P.max_lum / fmaxf(lum, 1e-12f) : 1.0f;
+    new_avg = new_avg * lscale;
+    s.accum = new_avg * (cnt_f + 1.0f);
+    s.count += 1;
+    alive = s.count < P.n_samples;
+    if (alive) start_sample(tb, P, pix, s);
+  }
+  accum_out[3 * lane] = s.accum.x;
+  accum_out[3 * lane + 1] = s.accum.y;
+  accum_out[3 * lane + 2] = s.accum.z;
+  count_out[lane] = s.count;
+  rays_out[lane] = rays;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch the fused render on `stream`. Pointers are device pointers; `ip` is a
+// host array of P_COUNT ints (ParamIdx order). Returns the launch's
+// cudaError_t (0 on success). Does not synchronise.
+int mrt_fused_render(const float* sph, const float* rect, const float* tri, const float* box,
+                     const float* vol, const float* mat, const float* tex, const float* cam,
+                     const float* ptab, const int* pix, float* accum, int* count, int* rays,
+                     const int* ip, float max_lum, void* stream) {
+  Tables tb{sph, rect, tri, box, vol, mat, tex, cam, ptab};
+  Params P;
+  P.n = ip[P_N];
+  P.width = ip[P_WIDTH];
+  P.height = ip[P_HEIGHT];
+  P.sq = ip[P_SQ];
+  P.max_bounces = ip[P_MAX_BOUNCES];
+  P.sample_lo = ip[P_SAMPLE_LO];
+  P.n_samples = ip[P_N_SAMPLES];
+  P.S = ip[P_S];
+  P.R = ip[P_R];
+  P.Tc = ip[P_TC];
+  P.Bx = ip[P_BX];
+  P.V = ip[P_V];
+  P.M = ip[P_M];
+  P.X = ip[P_X];
+  P.n_lights = ip[P_NLIGHTS];
+  for (int i = 0; i < MAX_LIGHTS; ++i) {
+    P.ltype[i] = ip[P_LTYPE + i];
+    P.lidx[i] = ip[P_LIDX + i];
+  }
+  P.use_sky = ip[P_USE_SKY];
+  P.exact_cos = ip[P_EXACT_COS];
+  P.perlin = ip[P_PERLIN];
+  P.max_lum = max_lum;
+  if (P.n <= 0) return 0;
+  const int threads = 128;
+  const int blocks = (P.n + threads - 1) / threads;
+  fused_render_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(tb, P, pix, accum, count,
+                                                                    rays);
+  return (int)cudaGetLastError();
+}
+
+const char* mrt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+}  // extern "C"

@@ -1,0 +1,165 @@
+"""The port's scene tables against the JAX package's, field by field.
+
+The scene tables are the renderer's "weights": the port must build exactly
+what miniraytracer_tpu builds (same values, dtypes and static metadata),
+pack them into the same flat kernel tables, and accept a JAX scene's leaves
+through `from_numpy`.
+"""
+
+import dataclasses
+import pathlib
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from miniraytracer_tpu.models import camera as jcam
+from miniraytracer_tpu.models import integrator as jinteg
+from miniraytracer_tpu.models import scenes as jscenes
+from miniraytracer_tpu.ops import bounce as jbounce
+from miniraytracer_tpu.ops import rng as jrng
+from miniraytracer_tpu_torch.models import camera as tcam
+from miniraytracer_tpu_torch.models import integrator as tinteg
+from miniraytracer_tpu_torch.models import scenes as tscenes
+from miniraytracer_tpu_torch.ops import bounce as tbounce
+from miniraytracer_tpu_torch.ops import rng as trng
+from miniraytracer_tpu_torch.scene import types as ttypes
+
+torch.set_num_threads(1)
+
+FUSED = ["two_spheres", "perlin_spheres", "cornell_box", "cornell_smoke"]
+PORT = pathlib.Path(__file__).resolve().parent.parent / "miniraytracer_tpu_torch"
+
+
+def _leaves(scene) -> dict:
+    """A dataclass scene as a dict: arrays as numpy, camera as a dict."""
+    out = {}
+    for f in dataclasses.fields(scene):
+        v = getattr(scene, f.name)
+        if f.name == "camera":
+            out[f.name] = {c.name: np.asarray(getattr(v, c.name))
+                           for c in dataclasses.fields(v)}
+        elif f.metadata.get("static"):
+            out[f.name] = v
+        else:
+            out[f.name] = np.asarray(v)
+    return out
+
+
+def _assert_same(a: dict, b: dict):
+    assert a.keys() == b.keys()
+    for k in a:
+        if isinstance(a[k], dict):
+            _assert_same(a[k], b[k])
+        elif isinstance(a[k], np.ndarray):
+            assert a[k].dtype == b[k].dtype, k
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        else:
+            assert a[k] == b[k], k
+
+
+@pytest.mark.parametrize("name", FUSED)
+def test_scene_fields_equal_jax(name):
+    _assert_same(_leaves(getattr(jscenes, name)(1.0)),
+                 _leaves(getattr(tscenes, name)(1.0)))
+
+
+@pytest.mark.parametrize("name", FUSED)
+def test_pack_scene_equals_jax(name):
+    jmeta, jtabs = jbounce.pack_scene(getattr(jscenes, name)(1.0))
+    tmeta, ttabs = tbounce.pack_scene(getattr(tscenes, name)(1.0))
+    assert jmeta == tmeta
+    for i in range(8):  # sph rect tri box vol mat tex cam
+        np.testing.assert_array_equal(np.asarray(jtabs[i]), ttabs[i].numpy())
+        assert ttabs[i].dtype == torch.float32
+    # Perlin: JAX keeps each 256-entry table as two lane-replicated halves
+    jp = np.asarray(jtabs[8])
+    j256 = np.stack([np.concatenate([jp[16 * k], jp[16 * k + 8]])
+                     for k in range(6)])
+    np.testing.assert_array_equal(j256, ttabs[8].numpy())
+
+
+@pytest.mark.parametrize("name", FUSED)
+def test_from_numpy_equals_port_build(name):
+    carried = ttypes.from_numpy(_leaves(getattr(jscenes, name)(1.0)))
+    _assert_same(_leaves(carried), _leaves(getattr(tscenes, name)(1.0)))
+    assert tbounce.can_fuse(carried)
+
+
+def test_scene_to_device_keeps_everything():
+    sc = tscenes.cornell_box(1.0)
+    moved = sc.to("cpu")
+    _assert_same(_leaves(moved), _leaves(sc))
+    assert moved.device == torch.device("cpu")
+
+
+def test_unported_scenes_raise():
+    for sid, name in enumerate(tscenes.SCENE_NAMES):
+        if name in FUSED:
+            assert tscenes.select_scene(sid, 1.0).name == name
+        else:
+            with pytest.raises(NotImplementedError, match=name):
+                tscenes.select_scene(sid, 1.0)
+
+
+def test_sample_offsets_equal_jax():
+    for spp in (1, 4, 9, 10, 64):
+        jo, jn = jinteg.sample_offsets(spp)
+        to, tn = tinteg.sample_offsets(spp)
+        assert jn == tn
+        np.testing.assert_array_equal(np.asarray(jo), to.numpy())
+
+
+def test_camera_rays_match_jax_and_packed_formula():
+    rs = np.random.default_rng(11)
+    n = 4096
+    s = rs.random(n, dtype=np.float32)
+    t = rs.random(n, dtype=np.float32)
+    keys = rs.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    # a thin-lens camera with a shutter interval (two_spheres' book-1 camera)
+    jr = jcam.get_rays(jscenes.two_spheres(1.0).camera, jnp.asarray(s),
+                       jnp.asarray(t), jnp.asarray(keys))
+    sc = tscenes.two_spheres(1.0)
+    tk = torch.as_tensor(keys.astype(np.int64))
+    tr = tcam.get_rays(sc.camera, torch.as_tensor(s), torch.as_tensor(t), tk)
+    for a, b in ((jr.ro, tr.ro), (jr.rd, tr.rd)):
+        np.testing.assert_allclose(np.asarray(a.arr), b.arr.numpy(),
+                                   rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(jr.time), tr.time.numpy(), rtol=1e-6)
+    # the kernel's regeneration formula over the packed camera table gives
+    # the same rays bit for bit
+    _, tabs = tbounce.pack_scene(sc)
+    ro, rd, time = tbounce.camera_ray(tabs[7], torch.as_tensor(s),
+                                      torch.as_tensor(t), tk)
+    for a, b in ((ro, tr.ro), (rd, tr.rd)):
+        np.testing.assert_array_equal(a.arr.numpy(), b.arr.numpy())
+    np.testing.assert_array_equal(time.numpy(), tr.time.numpy())
+
+
+def test_film_coords_follow_jax_key_and_offset_rules():
+    w, h, sq = 7, 5, 3
+    pix = torch.arange(w * h, dtype=torch.int64).repeat(sq * sq)
+    samp = torch.arange(sq * sq).repeat_interleave(w * h)
+    ss, tt = tbounce.film_coords(pix, samp, w, h, sq)
+    offs, _ = jinteg.sample_offsets(sq * sq)
+    offs = np.asarray(offs)[samp.numpy()]
+    np.testing.assert_array_equal(
+        ss.numpy(), ((pix.numpy() % w).astype(np.float32) + offs[:, 0]) / w)
+    np.testing.assert_array_equal(
+        tt.numpy(), ((pix.numpy() // w).astype(np.float32) + offs[:, 1]) / h)
+    np.testing.assert_array_equal(
+        np.asarray(jrng.ray_key(pix.numpy().astype(np.uint32),
+                                samp.numpy().astype(np.uint32))).astype(np.int64),
+        trng.ray_key(pix, samp).numpy())
+
+
+def test_port_never_imports_jax():
+    """A source check (the test process itself has jax loaded)."""
+    pat = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+miniraytracer_tpu\b(?!_torch)"
+                     r"|from\s+miniraytracer_tpu\b(?!_torch))", re.M)
+    files = sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"]
+    assert len(files) > 10
+    offenders = [str(p) for p in files if pat.search(p.read_text())]
+    assert not offenders, offenders
