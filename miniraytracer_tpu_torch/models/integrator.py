@@ -14,6 +14,7 @@ import torch
 
 from miniraytracer_tpu_torch.ops import bounce
 from miniraytracer_tpu_torch.scene import types as T
+from miniraytracer_tpu_torch.utils.device import resolve
 
 
 def sample_offsets(spp: int, device=None):
@@ -48,9 +49,11 @@ def pick_renderer(scene: T.SceneData) -> str:
         f"integrator.pick_renderer), which is not ported yet")
 
 
-def render_auto(scene, width, height, spp, max_bounces=32, max_lum=1000.0):
-    """Render with the picked forward renderer, on the scene's device.
-    Returns (frame (H,W,3) float32 tensor, stats)."""
+def render_auto(scene, width, height, spp, max_bounces=32, max_lum=1000.0,
+                device=None):
+    """Render with the picked forward renderer on `device`: None means the
+    GPU (raises when there is none), and the scene is moved there. Returns
+    (frame (H,W,3) float32 tensor on that device, stats)."""
     pick_renderer(scene)
     return bounce.render_wavefront_fused(
-        scene, width, height, spp, max_bounces, max_lum)
+        scene.to(resolve(device)), width, height, spp, max_bounces, max_lum)

@@ -122,6 +122,29 @@ def cornell_smoke(aspect):
     return b.build()
 
 
+def ad_probe(aspect=1.0, builder_cls=SceneBuilder):
+    """Not one of the reference's scenes: the branches of the differentiable
+    step that the four scenes above do not reach (a sphere light, metal
+    gloss, a checker, a box under the sky), i.e. every `TrainParams` leaf but
+    `tri_m`. The step's kernels and their plain versions are held against
+    each other on it. `builder_cls` may be any class with `SceneBuilder`'s
+    interface."""
+    b = builder_cls()
+    b.name = "ad_probe"
+    b.set_camera([0, 2, 6], [0, 0.8, 0], [0, 1, 0], 45.0, aspect,
+                 aperture=0.0, focus_dist=6.0, t0=0.0, t1=0.0)
+    ground = b.lambertian(b.tex_checker([0.2, 0.3, 0.1], [0.9, 0.9, 0.9], 10.0))
+    b.sphere([0, -1000, 0], 1000, ground)
+    b.sphere([-1.1, 0.6, 0], 0.6, b.lambertian(b.tex_const([0.7, 0.3, 0.3])))
+    b.sphere([1.1, 0.5, 0.3], 0.5, b.metal(b.tex_const([0.8, 0.8, 0.9]), 0.6))
+    b.box([-0.5, 0.0, -1.5], [0.5, 1.2, -0.7],
+          b.lambertian(b.tex_const([0.4, 0.6, 0.8])))
+    lm = b.diffuse_light(b.tex_const([1.0, 1.0, 1.0]), 7.0)
+    b.add_light(b.sphere([0, 4.0, 1.0], 0.8, lm))
+    b.use_sky = True
+    return b.build()
+
+
 _GENERATORS = {
     SCENE_TWO_SPHERES: two_spheres,
     SCENE_PERLIN_SPHERES: perlin_spheres,

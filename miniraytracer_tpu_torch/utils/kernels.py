@@ -3,8 +3,8 @@
 Each `csrc/<name>.cu` is compiled by `nvcc` into a shared library with a
 plain C interface on first use, and loaded with ctypes. The library lands
 in `miniraytracer_tpu_torch/_build/` under a name keyed on a hash of the
-sources and the flags, so an edited source rebuilds and an unchanged one
-loads at once. A failed build raises with nvcc's output: there is no
+sources and the flags, so an edited source rebuilds (in the next process) and an
+unchanged one loads at once. A failed build raises with nvcc's output: there is no
 fallback to another implementation.
 
 Flags: `-O3 --fmad=false` without `--use_fast_math`, so that the kernels
@@ -74,14 +74,16 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built on first use."""
-    path = build(name)
-    if path not in _loaded:
-        lib = ctypes.CDLL(str(path))
+    """The loaded library of `csrc/<name>.cu`, built on first use. A process
+    looks at the sources once per library: a scan launches its kernels
+    hundreds of times a step, and hashing the sources on each launch would
+    cost more than the launch."""
+    if name not in _loaded:
+        lib = ctypes.CDLL(str(build(name)))
         lib.mrt_error_string.argtypes = [ctypes.c_int]
         lib.mrt_error_string.restype = ctypes.c_char_p
-        _loaded[path] = lib
-    return _loaded[path]
+        _loaded[name] = lib
+    return _loaded[name]
 
 
 def error_string(lib: ctypes.CDLL, code: int) -> str:
