@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `miniraytracer_tpu_torch/csrc` and drives
-both ported paths on the card:
+the three ported paths on the card:
 
 - the forward render: kernel B1 (`bounce.cu`) against its plain PyTorch
   version and against the real reference renderer's frames, then the Cornell
@@ -12,7 +12,14 @@ both ported paths on the card:
   hand-derived backward) against their plain versions on five scenes lane
   by lane, then three steps of `make_train_step` on the Cornell box at
   500x500, 32 bounces, 128 samples a step, whose loss must fall on a
-  held-out sample set.
+  held-out sample set;
+- the hybrid forward render: kernels B7/B8 (`flash.cu`, the dense nearest
+  triangle / nearest sphere sweeps) and B4 (`hybrid.cu`, the step that takes
+  their winner as a candidate) against their plain versions on rays and lane
+  states of real wave steps at 500x500, whole renders against the plain ones
+  and against the reference renderer's frames, then random_spheres (486
+  spheres, a material each) at 500x500, 64 spp, 32 bounces through `render`,
+  and a procedural scene with 1000 triangles the same way.
 
 Each main path is driven with the kernels' launch counts set to 0 just before
 and read just after. Every phase raises on failure, so the exit code is
@@ -142,15 +149,15 @@ def main() -> None:
           f"device {torch.cuda.get_device_name(0)}")
 
     import miniraytracer_tpu_torch as mrt
-    from miniraytracer_tpu_torch.ops import bounce, bounce_ad
+    from miniraytracer_tpu_torch.ops import bounce, bounce_ad, flash, hybrid
     from miniraytracer_tpu_torch.utils import kernels
 
     # 2. build the kernels from the sources in this checkout
     t0 = time.perf_counter()
-    names = ("bounce", "bounce_ad")
+    names = ("bounce", "bounce_ad", "flash", "hybrid")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(kernels.build, names))  # one nvcc each, side by side
-    print(f"phase 2: built csrc/bounce.cu and csrc/bounce_ad.cu in "
+    print(f"phase 2: built {', '.join(f'csrc/{n}.cu' for n in names)} in "
           f"{time.perf_counter() - t0:.2f} s")
     for name in names:
         for line in kernels.build_log(name).splitlines():
@@ -248,6 +255,7 @@ def main() -> None:
     }]
 
     kernel_rows += train_phases(mrt, bounce, bounce_ad, dev, card_line)
+    kernel_rows += hybrid_phases(mrt, bounce, flash, hybrid, dev, card_line, refs)
 
     print(card_line)
     print(json.dumps({"kernels": kernel_rows}))
@@ -615,6 +623,311 @@ def train_phases(mrt, bounce, bounce_ad, dev, card_line):
          "ms": statistics.mean(ms["bwd_k"]), "plain_ms": statistics.mean(ms["bwd_p"]),
          "bound_ms": b3_bound, "bound_by": b3_by, "scan_ms_per_launch": b3_scan,
          "scan_bound_ms_per_launch": b3_mean, **common},
+    ]
+
+
+# ---------------------------------------------------------------------------
+# The hybrid forward render: kernels B7, B8 (flash.cu) and B4 (hybrid.cu)
+# ---------------------------------------------------------------------------
+
+# fp32 instructions per (ray, primitive) pair of the dense sweeps, counted from
+# csrc/flash.cu (a multiply and an add are two: --fmad=false). Sphere: two
+# 17-term sums (2 x (17 + 16)), disc 2, the root 1, the two roots 3, the
+# tests and the running minimum ~8. Triangle: four 16-term sums (4 x (16 +
+# 15)), the sign and three products 4, the division 1, one sum 1, the tests
+# and the minimum ~8.
+FP32_OPS_PER_SPHERE_PAIR = 80
+FP32_OPS_PER_TRI_PAIR = 138
+
+
+def step_ops_per_ray(meta):
+    """fp32 operations of one hybrid step on a live lane, counted as
+    FP32_OPS_PER_RAY_FWD was: the sweep over what stays in the tables (27 a
+    sphere, 37 a rect, 55 a triangle, 55 a box, 90 a volume; inactive pad
+    rows are swept too), hit point 6, shading ~210, the step's algebra and
+    the share of a camera ray ~40, the image uv and texel ~60."""
+    sweep = (27 * meta["S"] + 37 * meta["R"] + 55 * meta["Tc"] + 55 * meta["Bx"]
+             + 90 * meta["V"])
+    return sweep + 6 + 210 + 40 + (60 if meta["image"] else 0)
+
+
+def hybrid_snapshots(bounce, hybrid, scene, w, h, sq, bounces, at, plain=False):
+    """Lane states and candidate rows of real wave steps: runs the hybrid
+    loop of the whole image (`sq`^2 samples a pixel) and returns (cfg, accel,
+    pix, {step: (state, ext)}) for the steps in `at`."""
+    meta, tables = hybrid.pack_scene_hybrid(scene)
+    cfg = hybrid.StepConfig(meta=meta, tables=tuple(tables), images=scene.images, width=w,
+                            height=h, sq=sq, max_bounces=bounces, max_lum=1000.0,
+                            sample_lo=0, n_samples=sq * sq)
+    accel = hybrid.hybrid_accel(scene)
+    pix = torch.arange(w * h, dtype=torch.int32, device=scene.device)
+    state = hybrid.initial_state(scene, pix, 0, sq * sq, width=w, height=h, spp_sq=sq)
+    step = hybrid.hybrid_step_plain if plain else hybrid.hybrid_step
+    snaps = {}
+    for t in range(max(at) + 1):
+        alive = state[0][hybrid.R_ALIVE] > 0
+        ext = torch.stack(hybrid._external_candidate(
+            scene, accel, hybrid.state_rays(state[0], state[1]), alive, bounce.TMIN,
+            plain=plain))
+        if t in at:
+            snaps[t] = (state, ext)
+        state = step(cfg, *state, pix, ext)
+    return cfg, accel, pix, snaps
+
+
+def in_turns(run_k, run_p, kernel_reps=5):
+    """Kernel and plain version timed in turns (plain, kernel, kernel, plain);
+    a kernel launch is short, so `kernel_reps` of them are timed at once.
+    Returns (kernel ms list, plain ms list)."""
+    ms = {"k": [], "p": []}
+    for key in ("p", "k", "k", "p"):
+        fn, reps = (run_k, kernel_reps) if key == "k" else (run_p, 1)
+        ms[key].append(cuda_ms(lambda: [fn() for _ in range(reps)], 1)[0] / reps)
+    return ms["k"], ms["p"]
+
+
+def compare_sweep(where, kernel_out, plain_out, alive):
+    """A dense sweep's kernel against its plain version on the same rays: the
+    index equal on at least 99.99% of the rays and t equal to 1e-6 relative
+    there; on the rest both must be near-ties (|dt| <= 1e-5 relative, or a hit
+    against a miss at the tmin edge is not allowed at all); dead lanes miss.
+    Returns the largest |dt| over the rays with equal index."""
+    (tk, ik), (tp, ip) = kernel_out, plain_out
+    same = ik == ip
+    rel = (tk - tp).abs() / tp.abs().clamp_min(1e-30)
+    hits = int((tp < 3e38).sum())
+    share = float(same.float().mean())
+    worst_same = float(rel[same].max())
+    worst_other = float(rel[~same].max()) if (~same).any() else 0.0
+    print(f"  {where}: {tk.numel()} rays ({int(alive.sum())} alive), {hits} hits; index equal on "
+          f"{share:.6f}; max rel |dt| there {worst_same:.3g}, elsewhere {worst_other:.3g}")
+    check(share >= 0.9999, f"{where}: index differs on more than 0.01% of rays")
+    check(worst_same <= 1e-6, f"{where}: t differs by more than 1e-6 relative")
+    check(worst_other <= 1e-5, f"{where}: a differing winner is no near-tie")
+    check(hits > 0 and not bool((tk[~alive] < 3e38).any()) and not bool(ik[~alive].any()),
+          f"{where}: no hits, or a dead lane hit something")
+    return float((tk - tp).abs()[same & (tp < 3e38)].max())
+
+
+def compare_step(where, hybrid, kernel_out, plain_out):
+    """One launch of B4 against the plain step on the same state. The two
+    round sin, cos, log and exp differently, so a lane in a few thousand takes
+    another discrete decision and its floats then differ wholly: a lane agrees
+    when its integer rows, key, ray count and alive row are equal, its origin
+    is within 1e-5 of the largest coordinate in the state and every other
+    float within 1e-5*(1+|plain|). At least 99.9% of lanes must agree.
+    Returns (share agreeing, max abs err off the origin rows on them)."""
+    (fk, ik, kk, rk), (fp, ip, kp, rp) = kernel_out, plain_out
+    err = (fk - fp).abs()
+    tol = 1e-5 * (1 + fp.abs())
+    ro = slice(hybrid.R_RO, hybrid.R_RD)
+    ro_scale = float(fp[ro].abs().max().clamp_min(1.0))
+    tol[ro] = 1e-5 * ro_scale
+    tol[hybrid.R_ALIVE] = 0.0
+    agree = (ik == ip).all(0) & (kk == kp) & (rk == rp) & (err <= tol).all(0)
+    other = torch.ones_like(err, dtype=torch.bool)
+    other[ro] = False
+    share = float(agree.float().mean())
+    e_ro, e_other = float(err[ro][:, agree].max()), float((err * other)[:, agree].max())
+    print(f"  {where}: {fk.shape[1]} lanes ({int((fp[hybrid.R_ALIVE] > 0).sum())} alive after), "
+          f"lanes that agree {share:.5f}; on them max abs err: origin {e_ro:.3g} "
+          f"(coordinates up to {ro_scale:.3g}), other rows {e_other:.3g}")
+    check(torch.isfinite(fk[:, agree]).all().item(), f"{where}: state not finite")
+    check(share >= 0.999, f"{where}: B4 agrees with plain on {share:.5f} of lanes")
+    return share, e_other
+
+
+def hybrid_phases(mrt, bounce, flash, hybrid, dev, card_line, refs):
+    """Phases 8 to 12: the dense sweeps, the hybrid step and the hybrid
+    render. Returns the three kernels' rows of the result line."""
+    w = h = 500
+    n = w * h
+    scenes = {"random_spheres": mrt.scenes.random_spheres(1.0).to(dev),
+              "earth": mrt.scenes.earth(1.0).to(dev),
+              "hybrid_probe": mrt.scenes.hybrid_probe(1.0, 80, 200).to(dev)}
+    probe_1000 = mrt.scenes.hybrid_probe(1.0, 80, 1000).to(dev)
+
+    # 8. B7/B8 vs plain on rays of real wave steps at 500x500 (4 spp, so that
+    # a later step has dead lanes, which arrive as NaN rays)
+    print("phase 8: dense sweeps vs plain PyTorch on rays of wave steps, 500x500")
+    rs = scenes["random_spheres"]
+    cfg_rs, accel_rs, pix, snaps_rs = hybrid_snapshots(bounce, hybrid, rs, w, h, 2, 32, (0, 2, 12))
+    sweep_err = {"sph": 0.0, "tri": 0.0}
+    sweeps = {}
+
+    def nan_rays(state):
+        """A state's rays as the sweeps get them: dead lanes NaN."""
+        rays = hybrid.state_rays(state[0], state[1])
+        alive = state[0][hybrid.R_ALIVE] > 0
+        nan = float("nan")
+        ro = type(rays.ro)(*(torch.where(alive, c, nan) for c in rays.ro))
+        rd = type(rays.rd)(*(torch.where(alive, c, nan) for c in rays.rd))
+        return rays, alive, ro, rd
+
+    for t, (state, _) in snaps_rs.items():
+        rays, alive, ro, rd = nan_rays(state)
+        args = (accel_rs["sph"], ro, rd, rays.time, rays.inside, bounce.TMIN)
+        check(t < 12 or (bool((~alive).any()) and bool((rays.inside[alive] > 0).any())),
+              "step 12 has no dead lane or no lane inside glass")
+        sweep_err["sph"] = max(sweep_err["sph"], compare_sweep(
+            f"B8 random_spheres step {t}, {rs.n_spheres} spheres",
+            flash.flash_sphere_hit(*args), flash.flash_sphere_hit_plain(*args), alive))
+        if t == 2:  # every lane alive, as in most steps of a 64-spp frame
+            sweeps["sph"] = (args, alive)
+    for label, scene in (("200", scenes["hybrid_probe"]), ("1000", probe_1000)):
+        _, accel, _, snaps = hybrid_snapshots(bounce, hybrid, scene, w, h, 2, 32, (2, 6))
+        for t, (state, _) in snaps.items():
+            rays, alive, ro, rd = nan_rays(state)
+            args = (accel["tri"], ro, rd, rays.inside, bounce.TMIN)
+            sweep_err["tri"] = max(sweep_err["tri"], compare_sweep(
+                f"B7 hybrid_probe step {t}, {scene.n_tris} triangles",
+                flash.flash_tri_hit(*args), flash.flash_tri_hit_plain(*args), alive))
+            if t == 2:
+                sweeps["tri"] = (args, alive, scene.n_tris)
+    args, alive = sweeps["sph"]
+    b8_k, b8_p = in_turns(lambda: flash.flash_sphere_hit(*args),
+                          lambda: flash.flash_sphere_hit_plain(*args))
+    n_live = int(alive.sum())
+    table_words = sum(t.numel() for t in args[0])
+    b8_bound, b8_by = bound(4 * (n * 10 + table_words),
+                            n_live * rs.n_spheres * FP32_OPS_PER_SPHERE_PAIR)
+    args, alive, n_tris = sweeps["tri"]
+    b7_k, b7_p = in_turns(lambda: flash.flash_tri_hit(*args),
+                          lambda: flash.flash_tri_hit_plain(*args))
+    b7_bound, b7_by = bound(4 * (n * 9 + sum(t.numel() for t in args[0])),
+                            int(alive.sum()) * n_tris * FP32_OPS_PER_TRI_PAIR)
+    print(f"  B8 at {n} rays ({n_live} alive) x {rs.n_spheres} spheres: kernel {b8_k} ms, plain "
+          f"{b8_p} ms, bound {b8_bound:.4f} ms by {b8_by}; B7 at {n} rays "
+          f"({int(alive.sum())} alive) x {n_tris} triangles: kernel {b7_k} ms, plain {b7_p} ms, "
+          f"bound {b7_bound:.4f} ms by {b7_by}; on {card_line}")
+
+    # 9. B4 vs plain, one step, 250,000 lanes, in its three modes
+    print("phase 9: hybrid step kernel vs plain PyTorch, one step, 250,000 lanes")
+    step_err, step_share, b4 = 0.0, 1.0, None
+    for name, scene in scenes.items():
+        if name == "random_spheres":
+            cfg, snaps = cfg_rs, snaps_rs
+        else:
+            cfg, _, _, snaps = hybrid_snapshots(bounce, hybrid, scene, w, h, 2, 32, (0, 2, 12))
+        mode = ("11 candidate rows" if cfg.meta.get("ext_mat") else
+                "image texels" if cfg.meta["image"] else "5 candidate rows")
+        for t, (state, ext) in snaps.items():
+            share, err = compare_step(
+                f"B4 {name} ({mode}) step {t}", hybrid,
+                hybrid.hybrid_step(cfg, *state, pix, ext),
+                hybrid.hybrid_step_plain(cfg, *state, pix, ext))
+            step_err, step_share = max(step_err, err), min(step_share, share)
+        if name == "random_spheres":
+            b4 = (cfg, *snaps[2])
+    cfg, state, ext = b4
+    b4_k, b4_p = in_turns(lambda: hybrid.hybrid_step(cfg, *state, pix, ext),
+                          lambda: hybrid.hybrid_step_plain(cfg, *state, pix, ext))
+    live = int((state[0][hybrid.R_ALIVE] > 0).sum())
+    # words a lane: in 17 + 3 + key + rays + pix + 11 candidate rows, out 22
+    b4_bound, b4_by = bound(
+        4 * (n * (23 + hybrid.NE_MAT + 22) + sum(t.numel() for t in cfg.tables)),
+        live * step_ops_per_ray(cfg.meta))
+    print(f"  B4 random_spheres step 2 ({live} lanes alive): kernel {b4_k} ms, plain {b4_p} ms, "
+          f"bound {b4_bound:.4f} ms by {b4_by} on {card_line}")
+    del snaps_rs, snaps, sweeps, b4, state, ext, args
+    torch.cuda.empty_cache()
+
+    # 10. whole hybrid renders, kernels vs plain versions, 64x64x4x8
+    print("phase 10: hybrid render, kernels vs plain PyTorch, 64x64, 4 spp, 8 bounces")
+    pix64 = torch.arange(64 * 64, dtype=torch.int32, device=dev)
+    kw = dict(width=64, height=64, max_bounces=8, spp_sq=2)
+    for name, scene in scenes.items():
+        k = hybrid.render_wavefront_hybrid_pixels(scene, pix64, 0, 4, 1000.0, **kw)
+        p = hybrid.render_wavefront_hybrid_pixels(scene, pix64, 0, 4, 1000.0, plain=True, **kw)
+        compare(name, k, p)
+
+    # 11. against the reference renderer's frames (channel means)
+    # The reference rendered earth from its earth map. Without that file (the
+    # directory MRT_ASSETS names) the scene takes a procedural map of other
+    # colours, as in the JAX package, and the frame cannot meet the reference
+    # at test_reference_parity's 0.015: the difference is then printed and
+    # held to 0.25, and earth's frame rests on phase 10 and on the CPU tests.
+    print("phase 11: hybrid render vs reference renderer, 100x100, 16 spp, 16 bounces")
+    assets = os.environ.get("MRT_ASSETS")
+    real_map = bool(assets) and os.path.exists(os.path.join(assets, "earthmap.jpg"))
+    print(f"  earth map: {'the file' if real_map else 'procedural (no earthmap.jpg)'}")
+    for name, tol in (("random_spheres", 0.02), ("earth", 0.015 if real_map else 0.25)):
+        frame, _ = hybrid.render_wavefront_hybrid(scenes[name], 100, 100, 16, max_bounces=16)
+        ours = frame.cpu().numpy()
+        check(np.isfinite(ours).all(), f"{name}: frame not finite")
+        ref_mean = refs[name].mean(axis=(0, 1))
+        rel = np.abs(ref_mean - ours.mean(axis=(0, 1))) / np.maximum(ref_mean, 1e-6)
+        print(f"  {name}: channel means rel diff {rel.max():.4f} (tolerance {tol})")
+        check(rel.max() < tol, f"{name}: reference parity")
+
+    # 12. the main path: render() of random_spheres at 500x500x64x32, and of
+    # the 1000-triangle scene for the triangle sweep
+    print("phase 12: mrt.render(random_spheres, 500, 500, 64, max_bounces=32)")
+    scene = mrt.scenes.random_spheres(1.0)
+    torch.cuda.synchronize()
+    hybrid.step_launches = flash.sphere_launches = flash.tri_launches = 0
+    frame, stats = mrt.render(scene, w, h, 64, max_bounces=32)
+    b4_launches, b8_launches = hybrid.step_launches, flash.sphere_launches
+    check(stats["renderer"] == "hybrid", f"renderer {stats['renderer']}")
+    check(b4_launches > 0 and b8_launches > 0 and flash.tri_launches == 0,
+          "the render did not launch the step and sphere-sweep kernels")
+    check(b4_launches == b8_launches == stats["steps"], "launches and wave steps differ")
+    check(frame.shape == (h, w, 3) and frame.is_cuda, "frame shape/device")
+    check(torch.isfinite(frame).all().item(), "frame not finite")
+    print(f"  renderer {stats['renderer']}, {stats['steps']} wave steps, launches B4 "
+          f"{b4_launches} B8 {b8_launches}, rays {stats['rays']}, frame mean "
+          f"{frame.mean(dim=(0, 1)).tolist()}")
+    scene_d = scene.to(dev)
+    one_frame = lambda: mrt.render(scene_d, w, h, 64, max_bounces=32)
+    ms = cuda_ms(one_frame, 3)
+    med = statistics.median(ms)
+    print(f"  forward {stats['rays'] / (med / 1e3) / 1e6:.1f} Mrays/s (median of 3 warm renders, "
+          f"{med:.1f} ms each, {med / stats['steps']:.3f} ms a wave step; runs {ms}) on {card_line}")
+    wall, busy, by_name = device_share(one_frame)
+    named = {"flash_sphere_kernel": 0.0, "hybrid_step_kernel": 0.0}
+    for kname, (kms, _) in by_name.items():
+        for key in named:
+            if key in kname:
+                named[key] += kms
+    rest = busy - sum(named.values())
+    n_rest = sum(c for kname, (_, c) in by_name.items() if not any(k in kname for k in named))
+    print(f"  one frame under torch.profiler: wall {wall:.1f} ms, device busy {busy:.1f} ms (idle "
+          f"share {max(0.0, 1 - busy / wall):.3f}; without the profiler the same device time is "
+          f"{busy / med:.3f} of the median frame): B8 {named['flash_sphere_kernel']:.1f} ms, B4 "
+          f"{named['hybrid_step_kernel']:.1f} ms, {n_rest} other launches (candidate assembly, "
+          f"row stacking, the alive test) {rest:.1f} ms")
+    for kname, (kms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]:
+        print(f"    {kms:8.2f} ms  {100 * kms / busy:5.1f}%  x{count:<6d} {kname[:90]}")
+
+    print("  mrt.render(hybrid_probe with 1000 triangles, 500, 500, 16, max_bounces=32)")
+    hybrid.step_launches = flash.sphere_launches = flash.tri_launches = 0
+    frame, stats_t = mrt.render(probe_1000, w, h, 16, max_bounces=32)
+    b7_launches = flash.tri_launches
+    check(stats_t["renderer"] == "hybrid" and b7_launches == stats_t["steps"] > 0,
+          "the render did not launch the triangle-sweep kernel once a step")
+    check(torch.isfinite(frame).all().item() and frame.is_cuda, "frame not finite")
+    ms_t = cuda_ms(lambda: mrt.render(probe_1000, w, h, 16, max_bounces=32), 3)
+    print(f"  renderer {stats_t['renderer']}, {stats_t['steps']} wave steps, launches B7 "
+          f"{b7_launches}, rays {stats_t['rays']}; "
+          f"{stats_t['rays'] / (statistics.median(ms_t) / 1e3) / 1e6:.1f} Mrays/s (median of 3, "
+          f"runs {ms_t} ms) on {card_line}")
+
+    common = {"route": "cuda", "library_ms": None}
+    src = "miniraytracer_tpu_torch/csrc/"
+    return [
+        {"name": "flash_tri_hit", "source": src + "flash.cu",
+         "replaces": "miniraytracer_tpu/ops/flash.py:295", "launches": b7_launches,
+         "max_abs_err": sweep_err["tri"], "ms": statistics.mean(b7_k),
+         "plain_ms": statistics.mean(b7_p), "bound_ms": b7_bound, "bound_by": b7_by, **common},
+        {"name": "flash_sphere_hit", "source": src + "flash.cu",
+         "replaces": "miniraytracer_tpu/ops/flash.py:257", "launches": b8_launches,
+         "max_abs_err": sweep_err["sph"], "ms": statistics.mean(b8_k),
+         "plain_ms": statistics.mean(b8_p), "bound_ms": b8_bound, "bound_by": b8_by, **common},
+        {"name": "hybrid_step", "source": src + "hybrid.cu",
+         "replaces": "miniraytracer_tpu/ops/hybrid.py:517", "launches": b4_launches,
+         "max_abs_err": step_err, "lanes_agreeing": step_share, "ms": statistics.mean(b4_k),
+         "plain_ms": statistics.mean(b4_p), "bound_ms": b4_bound, "bound_by": b4_by,
+         "frame_ms": med, "frame_steps": stats["steps"], **common},
     ]
 
 

@@ -1,10 +1,14 @@
 """miniraytracer_tpu_torch — the PyTorch/CUDA port of miniraytracer_tpu.
 
-Two paths are ported, both for the fused scene class (cornell_box,
+Three paths are ported. For the fused scene class (cornell_box,
 cornell_smoke, two_spheres, perlin_spheres): the forward path tracer
 (`render`, kernel `csrc/bounce.cu`) and the differentiable train step
 (`make_train_step`, kernels `csrc/bounce_ad.cu`: the scan step and its
-hand-derived backward). The kernels are hand-written CUDA, built with nvcc on
+hand-derived backward). For scenes beyond it (random_spheres with its ~490
+spheres and materials; earth through `ops.hybrid.render_wavefront_hybrid`):
+the hybrid forward renderer, which `render` picks by the JAX package's rule:
+dense nearest-hit kernels (`csrc/flash.cu`) feeding one step kernel
+(`csrc/hybrid.cu`). The kernels are hand-written CUDA, built with nvcc on
 first use.
 
 The entry points run on the NVIDIA GPU: `device=None` means "cuda", the scene
@@ -17,6 +21,7 @@ Quick start:
     import miniraytracer_tpu_torch as mrt
     scene = mrt.scenes.cornell_box(aspect=1.0)
     frame, stats = mrt.render(scene, 500, 500, spp=64)      # on the GPU
+    frame, stats = mrt.render(mrt.scenes.random_spheres(1.0), 500, 500, 64)
 
     step = mrt.make_train_step(width=500, height=500, max_bounces=32,
                                spp_step=128)

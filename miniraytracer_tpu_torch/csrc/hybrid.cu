@@ -1,0 +1,148 @@
+// Hybrid renderer's step kernel for Hopper (sm_90a).
+//
+// Replaces the TPU kernel `miniraytracer_tpu/ops/hybrid.py::_make_step_kernel`
+// (launched by `_step_call`). It computes what that kernel computes: ONE wave
+// step (`ops/bounce.py::wave_step`: bounce, miss/emit/throughput advance, draw2
+// merge, regeneration) on every lane, with the nearest-hit sweep over the
+// scene tables SEEDED by a candidate found outside the kernel. The candidate
+// is the winner of the dense sweeps of flash.cu over the primitive sets that
+// are too large for the tables (`ops/hybrid.py::_external_candidate`): rows
+// (t, nx, ny, nz, mat_f), or in ext-material mode 11 rows that also carry the
+// winner's material (mtype, mparam, albedo rgb, texel index), evaluated from
+// the scene's full tables, because the kernel's own material tables then hold
+// only what the in-table primitives use. The plain PyTorch version is
+// `hybrid_step_plain` in `miniraytracer_tpu_torch/ops/hybrid.py`.
+//
+// Row contract (as the TPU kernel's): in f32 state (17, N) = accum(3) ro(3)
+// rd(3) time beta(3) radiance(3) alive; i32 state (3, N) = count, inside,
+// depth; key bits (N,); ray counter (N,) (i32 here, f32 there); pixel ids (N,);
+// ext (5 or 11, N). Out: new state, keys and ray counter. A dead lane changes
+// only its depth.
+//
+// Design. One thread per lane, 128-thread blocks: load the lane's 22 words and
+// its candidate, run physics.cuh's `live_step` once if the lane is alive,
+// store. ext / ext-material / image are template switches, so the instance
+// without them is the code of the fused render. Two departures from the TPU
+// shape: the image texel is fetched and multiplied into the throughput HERE
+// (there the kernel reports a texel index as a float row and a gather between
+// steps applies it), and the ray counter is an integer.
+//
+// What bounds it on this card: per-lane fp32 work of the shading (the
+// in-table sweep is short: the big sets were swept outside) against 22 + 5 or
+// 11 words read and 22 written per lane; at one step a launch the two are of
+// the same order, and divergence between lanes of a warp comes on top.
+//
+// Build: nvcc -O3 -std=c++17 -gencode arch=compute_90a,code=sm_90a
+//        --fmad=false (no --use_fast_math), see utils/kernels.py.
+
+#include "physics.cuh"
+
+namespace {
+
+// state rows (ops/bounce.py: R_*, I_*)
+constexpr int R_ACC = 0, R_RO = 3, R_RD = 6, R_TIME = 9, R_BETA = 10, R_RAD = 13, R_ALIVE = 16;
+constexpr int I_COUNT = 0, I_INSIDE = 1, I_DEPTH = 2;
+
+// appended to the render kernels' parameter block (physics.cuh: ParamIdx)
+enum HybridParamIdx { H_EXT_MAT = P_COUNT, H_IMAGE, H_N_IMG, H_IH, H_IW, H_COUNT };
+
+__device__ __forceinline__ V3 load_row3(const float* __restrict__ f, int row, int n, int lane) {
+  return v3(f[(size_t)row * n + lane], f[(size_t)(row + 1) * n + lane],
+            f[(size_t)(row + 2) * n + lane]);
+}
+
+__device__ __forceinline__ void store_row3(float* __restrict__ f, int row, int n, int lane, V3 v) {
+  f[(size_t)row * n + lane] = v.x;
+  f[(size_t)(row + 1) * n + lane] = v.y;
+  f[(size_t)(row + 2) * n + lane] = v.z;
+}
+
+template <bool EXT_MAT, bool IMAGE>
+__global__ void __launch_bounds__(128)
+hybrid_step_kernel(Tables tb, RenderParams P, Atlas atlas, const float* __restrict__ f_in,
+                   const int* __restrict__ i_in, const uint32_t* __restrict__ k_in,
+                   const int* __restrict__ rays_in, const int* __restrict__ pix_in,
+                   const float* __restrict__ ext_in, float* __restrict__ f_out,
+                   int* __restrict__ i_out, uint32_t* __restrict__ k_out,
+                   int* __restrict__ rays_out) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = P.n;
+  if (lane >= n) return;
+  Lane s;
+  s.accum = load_row3(f_in, R_ACC, n, lane);
+  s.ro = load_row3(f_in, R_RO, n, lane);
+  s.rd = load_row3(f_in, R_RD, n, lane);
+  s.time = f_in[(size_t)R_TIME * n + lane];
+  s.beta = load_row3(f_in, R_BETA, n, lane);
+  s.rad = load_row3(f_in, R_RAD, n, lane);
+  bool alive = f_in[(size_t)R_ALIVE * n + lane] > 0.0f;
+  s.count = i_in[(size_t)I_COUNT * n + lane];
+  s.inside = i_in[(size_t)I_INSIDE * n + lane];
+  s.depth = i_in[(size_t)I_DEPTH * n + lane];
+  s.key = k_in[lane];
+  int rays = rays_in[lane];
+  if (alive) {
+    ExtCand ext{};
+    const float* e = ext_in + lane;
+    ext.t = e[0];
+    ext.nx = e[(size_t)n];
+    ext.ny = e[(size_t)2 * n];
+    ext.nz = e[(size_t)3 * n];
+    ext.mat = e[(size_t)4 * n];
+    if (EXT_MAT) {
+      ext.mtype = e[(size_t)5 * n];
+      ext.mparam = e[(size_t)6 * n];
+      ext.ar = e[(size_t)7 * n];
+      ext.ag = e[(size_t)8 * n];
+      ext.ab = e[(size_t)9 * n];
+      ext.img = e[(size_t)10 * n];
+    }
+    alive = live_step<true, EXT_MAT, IMAGE>(tb, P, (uint32_t)pix_in[lane], s, rays, ext, atlas);
+  } else {
+    s.depth += 1;
+  }
+  store_row3(f_out, R_ACC, n, lane, s.accum);
+  store_row3(f_out, R_RO, n, lane, s.ro);
+  store_row3(f_out, R_RD, n, lane, s.rd);
+  f_out[(size_t)R_TIME * n + lane] = s.time;
+  store_row3(f_out, R_BETA, n, lane, s.beta);
+  store_row3(f_out, R_RAD, n, lane, s.rad);
+  f_out[(size_t)R_ALIVE * n + lane] = alive ? 1.0f : 0.0f;
+  i_out[(size_t)I_COUNT * n + lane] = s.count;
+  i_out[(size_t)I_INSIDE * n + lane] = s.inside;
+  i_out[(size_t)I_DEPTH * n + lane] = s.depth;
+  k_out[lane] = s.key;
+  rays_out[lane] = rays;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch one hybrid step on `stream`. Pointers are device pointers; `images`
+// is the atlas (n_img, ih, iw) of u32 texels; `ip` is a host array of H_COUNT
+// ints (the render kernels' block, then ext_mat, image, n_img, ih, iw).
+// Returns the launch's cudaError_t (0 on success). Does not synchronise.
+int mrt_hybrid_step(const float* sph, const float* rect, const float* tri, const float* box,
+                    const float* vol, const float* mat, const float* tex, const float* cam,
+                    const float* ptab, const uint32_t* images, const float* f_in,
+                    const int* i_in, const uint32_t* k_in, const int* rays_in, const int* pix,
+                    const float* ext, float* f_out, int* i_out, uint32_t* k_out, int* rays_out,
+                    const int* ip, float max_lum, void* stream) {
+  Tables tb{sph, rect, tri, box, vol, mat, tex, cam, ptab};
+  RenderParams P = read_render_params(ip, max_lum);
+  Atlas atlas{images, ip[H_N_IMG], ip[H_IH], ip[H_IW]};
+  if (P.n <= 0) return 0;
+  const int threads = 128;
+  const int blocks = (P.n + threads - 1) / threads;
+  const bool em = ip[H_EXT_MAT] != 0, im = ip[H_IMAGE] != 0;
+  auto kernel = em ? (im ? hybrid_step_kernel<true, true> : hybrid_step_kernel<true, false>)
+                   : (im ? hybrid_step_kernel<false, true> : hybrid_step_kernel<false, false>);
+  MRT_LAUNCH(kernel, blocks, threads, 0, stream, tb, P, atlas, f_in, i_in, k_in, rays_in, pix,
+             ext, f_out, i_out, k_out, rays_out);
+  return (int)cudaGetLastError();
+}
+
+const char* mrt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+}  // extern "C"

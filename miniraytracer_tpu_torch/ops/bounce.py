@@ -15,6 +15,9 @@ by side:
   a scene on the CPU, and what the tests and `chip_smoke.py` hold the
   kernel against.
 
+`bounce_physics` and `wave_step` also take the hybrid renderer's candidate
+from outside (`ext`) and its image textures (`ops/hybrid.py`).
+
 Both follow the JAX estimator exactly: the same counter-keyed RNG slots,
 the same where-guards and eps margins, the same merge/NaN/clamp policy.
 Floats may differ by library transcendentals and reassociation only.
@@ -30,13 +33,14 @@ from __future__ import annotations
 import ctypes
 import math
 import time as _time
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from miniraytracer_tpu_torch.models import camera as cam_mod
 from miniraytracer_tpu_torch.ops import rng
-from miniraytracer_tpu_torch.ops.vecmath import V3, vcross, vdot, vnormalize, vsqrt, vwhere
+from miniraytracer_tpu_torch.ops.vecmath import (V3, sphere_uv, vcross, vdot,
+                                                 vnormalize, vsqrt, vwhere)
 from miniraytracer_tpu_torch.scene import types as T
 
 INF = 3.0e38
@@ -78,6 +82,15 @@ def can_fuse(scene: T.SceneData) -> bool:
         and not scene.fast_perlin
         and len(scene.lights) <= MAX_LIGHTS
     )
+
+
+def perlin_table(scene: T.SceneData) -> torch.Tensor:
+    """The Perlin tables as six 256-entry float rows (px py pz gx gy gz)."""
+    f32 = lambda a: a.to(torch.float32).reshape(-1)
+    return torch.stack([
+        f32(scene.perlin_px), f32(scene.perlin_py), f32(scene.perlin_pz),
+        f32(scene.perlin_vec[:, 0]), f32(scene.perlin_vec[:, 1]),
+        f32(scene.perlin_vec[:, 2])])
 
 
 def pack_scene(scene: T.SceneData):
@@ -126,10 +139,7 @@ def pack_scene(scene: T.SceneData):
     tex = cat(1, [scene.tex_type, scene.tex_c0, scene.tex_c1,
                   scene.tex_scale, scene.tex_img])
     if meta["perlin"]:
-        ptab = torch.stack([
-            f32(scene.perlin_px), f32(scene.perlin_py), f32(scene.perlin_pz),
-            f32(scene.perlin_vec[:, 0]), f32(scene.perlin_vec[:, 1]),
-            f32(scene.perlin_vec[:, 2])])
+        ptab = perlin_table(scene)
     else:
         ptab = torch.zeros((6, 256), dtype=torch.float32, device=dev)
     cam = scene.camera
@@ -226,6 +236,22 @@ def _turbulence(ptab, p: V3):
     return torch.abs(acc_t)
 
 
+def atlas_texels(images) -> torch.Tensor:
+    """The image atlas ((I, IH, IW) u32, texels 0x00RRGGBB) as a flat int32
+    vector of the same bits (they are below 2^24), which torch can index on
+    every device."""
+    return images.view(torch.int32).reshape(-1)
+
+
+def texel_rgb(texel) -> V3:
+    """0x00RRGGBB texels (any integer dtype) -> colour components in [0, 1]."""
+    texel = texel.to(torch.int64)
+    inv255 = 1.0 / 255.0
+    return V3(((texel >> 16) & 0xFF).to(torch.float32) * inv255,
+              ((texel >> 8) & 0xFF).to(torch.float32) * inv255,
+              (texel & 0xFF).to(torch.float32) * inv255)
+
+
 class BounceOut(NamedTuple):
     """Physics outputs for one bounce, all (N,) lane tensors."""
 
@@ -239,6 +265,10 @@ class BounceOut(NamedTuple):
     weight: V3
     new_rd: V3
     new_inside: torch.Tensor
+    # only with meta["image"]: the winner's flat index into the image atlas
+    # (f32, -1 = no image albedo pending); such lanes are shaded with albedo 1
+    # and the caller multiplies the texel into the throughput
+    img_id: Optional[torch.Tensor] = None
 
 
 def _sphere_center(sph, S, si, time):
@@ -271,24 +301,44 @@ def _slab_inv(da):
 _BOX_AXES = ((0, 1, 2), (1, 0, 2), (2, 0, 1))
 
 
-def bounce_physics(meta, tabs, ptab, ro: V3, rd: V3, time, inside, keys_b):
+def bounce_physics(meta, tabs, ptab, ro: V3, rd: V3, time, inside, keys_b,
+                   ext=None):
     """One bounce of the reference trace() body (main.cpp:66-118): scene_hit
     as a running-winner record over all primitive types, then shade
     (material dispatch, 50/50 MIS light sampling, Perlin).
 
     `tabs` = (sph, rect, tri, box, vol, mat, tex) flat tables from
     `pack_scene`, `ptab` its (6, 256) Perlin tables. `inside` is int32,
-    `keys_b` the per-bounce key (u32 values in int64)."""
+    `keys_b` the per-bounce key (u32 values in int64).
+
+    `ext` (hybrid renderer): a surface candidate found outside, by the dense
+    nearest-hit kernels: rows (t, nx, ny, nz, mat_f) with t == INF where
+    there is none. It seeds the running winner, and a primitive of the
+    tables replaces it only strictly (<). With meta["ext_mat"] six more rows
+    (mtype, mparam, albedo r g b, texel index) carry the candidate's
+    material, evaluated outside from the scene's full tables."""
     S, R, Tc, V, Bx = meta["S"], meta["R"], meta["Tc"], meta["V"], meta["Bx"]
     M, X = meta["M"], meta["X"]
     lights = meta["lights"]
     nL = max(len(lights), 1)
     sph, rect, tri, box, vol, mat, tex = tabs
 
-    best_t = torch.full_like(time, INF)
     zero = torch.zeros_like(time)
-    w_n = V3(zero + 1.0, zero, zero)
-    w_mat = torch.zeros_like(inside)
+    ext_mat_rows = None
+    if ext is None:
+        best_t = torch.full_like(time, INF)
+        w_n = V3(zero + 1.0, zero, zero)
+        w_mat = torch.zeros_like(inside)
+    else:
+        if meta.get("ext_mat"):
+            (ext_t, ext_nx, ext_ny, ext_nz, ext_mat,
+             em_type, em_param, em_ar, em_ag, em_ab, em_img) = ext
+            ext_mat_rows = (em_type, em_param, V3(em_ar, em_ag, em_ab), em_img)
+        else:
+            ext_t, ext_nx, ext_ny, ext_nz, ext_mat = ext
+        best_t = ext_t
+        w_n = V3(ext_nx, ext_ny, ext_nz)
+        w_mat = ext_mat.to(torch.int32)
 
     # --- spheres (sphere.cpp:13-46) --- tie rule: sphere first, so '<'
     for si in range(S):
@@ -467,6 +517,10 @@ def bounce_physics(meta, tabs, ptab, ro: V3, rd: V3, time, inside, keys_b):
     p = ro + rd * safe_t
     # miss-lane record sanitation (scene_hit does the same)
     nrm = vwhere(hit, w_n, V3(zero + 1.0, zero, zero))
+    if ext_mat_rows is not None:
+        # the candidate seeded best_t and the tables' primitives replace it
+        # only strictly, so bit equality names a winner from outside
+        is_ext = hit & (best_t == ext_t)
 
     # ---------------- shade (materials.shade, exact slots) -------------
     mtype, mparam, tex_id = zero, zero, zero
@@ -495,6 +549,43 @@ def bounce_physics(meta, tabs, ptab, ro: V3, rd: V3, time, inside, keys_b):
         turb = _turbulence(ptab, V3(p.x * tscale, p.y * tscale, p.z * tscale))
         albedo = vwhere(ttype == float(T.TEX_PERLIN), V3(turb, turb, turb),
                         albedo)
+    img_id = None
+    if meta["image"]:
+        # image texture (texture.cpp:207-225): the uv of the winner normal
+        # (for a sphere the reference's (p-c)/radius, sphere.cpp:6-11), the
+        # nearest texel, clamped and v-flipped. The lane is shaded with
+        # albedo 1 and reports the texel's flat index in the atlas. Only
+        # materials that consume albedo do: a glass or light lane whose
+        # texture id merely defaults to an image gets no texel.
+        iid = zero
+        for xi in range(X):
+            iid = torch.where(tex_id == xi, tex[8 * X + xi], iid)
+        uses_albedo = ((mtype != float(T.MAT_DIELECTRIC))
+                       & (mtype != float(T.MAT_DIFFUSE_LIGHT)))
+        is_img = (ttype == float(T.TEX_IMAGE)) & uses_albedo
+        if ext_mat_rows is not None:
+            is_img = is_img & ~is_ext
+        u, v = sphere_uv(nrm)
+        hs = torch.where(is_img, c1.x, 1.0)
+        ws = torch.where(is_img, c1.y, 1.0)
+        ti = torch.minimum(torch.clamp_min((u * ws).to(torch.int32), 0),
+                           ws.to(torch.int32) - 1)
+        tj = torch.minimum(torch.clamp_min(((1.0 - v) * hs).to(torch.int32), 0),
+                           hs.to(torch.int32) - 1)
+        ih, iw = meta["img_hw"]
+        flat = (iid.to(torch.int32) * (ih * iw) + tj * iw + ti).to(torch.float32)
+        img_id = torch.where(is_img, flat, -1.0)
+        albedo = vwhere(is_img, V3(zero + 1.0, zero + 1.0, zero + 1.0), albedo)
+
+    if ext_mat_rows is not None:
+        # the material of a winner from outside: type, parameter and final
+        # albedo; everything downstream runs on them unchanged
+        em_type, em_param, em_albedo, em_img = ext_mat_rows
+        mtype = torch.where(is_ext, em_type, mtype)
+        mparam = torch.where(is_ext, em_param, mparam)
+        albedo = vwhere(is_ext, em_albedo, albedo)
+        if img_id is not None:
+            img_id = torch.where(is_ext, em_img, img_id)
 
     is_light = mtype == float(T.MAT_DIFFUSE_LIGHT)
     zero3 = V3(zero, zero, zero)
@@ -639,7 +730,7 @@ def bounce_physics(meta, tabs, ptab, ro: V3, rd: V3, time, inside, keys_b):
     return BounceOut(
         hit=hit, safe_t=safe_t, p=p, nrm=nrm, emitted=emitted,
         is_light=is_light, is_specular=is_specular,
-        weight=weight, new_rd=new_rd, new_inside=new_inside,
+        weight=weight, new_rd=new_rd, new_inside=new_inside, img_id=img_id,
     )
 
 
@@ -707,16 +798,23 @@ def film_coords(pix, samp, width, height, sq):
 
 
 def wave_step(meta, tabs, ptab, cam, width, height, sq, max_bounces, max_lum,
-              sample_lo, n_samples, pix, s: LaneState) -> LaneState:
+              sample_lo, n_samples, pix, s: LaneState, ext=None,
+              texels=None) -> LaneState:
     """ONE wavefront step: bounce + draw2 merge + lane regeneration (trace
     body main.cpp:66-118 + the incremental-average merge main.cpp:214-229).
-    Dead lanes change only their depth."""
+    Dead lanes change only their depth.
+
+    `ext` is the hybrid renderer's outside candidate (see `bounce_physics`).
+    With meta["image"], `texels` is the image atlas as a flat integer vector
+    (`atlas_texels`): a continuing lane whose hit has an image albedo gets the
+    texel multiplied into its throughput here."""
     alive = s.alive
     rays = s.rays + alive.to(torch.int32)
     keys_b = rng.fold(s.keys, s.depth)
     depth_ok = s.depth < max_bounces
 
-    b = bounce_physics(meta, tabs, ptab, s.ro, s.rd, s.time, s.inside, keys_b)
+    b = bounce_physics(meta, tabs, ptab, s.ro, s.rd, s.time, s.inside, keys_b,
+                       ext=ext)
     scattered = depth_ok & ~b.is_light
     add_emitted = ~(scattered & b.is_specular)
 
@@ -730,6 +828,12 @@ def wave_step(meta, tabs, ptab, cam, width, height, sq, max_bounces, max_lum,
     cont = alive & b.hit & scattered
     beta = vwhere(cont, s.beta * b.weight, s.beta)
     cont = cont & ((beta.x > 0.0) | (beta.y > 0.0) | (beta.z > 0.0))
+    if b.img_id is not None:
+        # only continuing lanes carry a pending image albedo (a lane that
+        # ends at the depth cap returns its emission only)
+        pend = cont & (b.img_id >= 0.0)
+        idx = torch.where(pend, b.img_id, 0.0).long().clamp(0, texels.numel() - 1)
+        beta = vwhere(pend, beta * texel_rgb(texels[idx]), beta)
 
     finished = alive & ~cont
     count = s.count

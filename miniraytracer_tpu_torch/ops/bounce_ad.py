@@ -41,6 +41,7 @@ from miniraytracer_tpu_torch.ops import bounce as B
 from miniraytracer_tpu_torch.ops import rng
 from miniraytracer_tpu_torch.ops.vecmath import V3, vwhere
 from miniraytracer_tpu_torch.scene import types as T
+from miniraytracer_tpu_torch.utils import device
 
 # float state rows
 A_SUM, A_RO, A_RD, A_TIME, A_BETA, A_RAD, A_ALIVE, A_NV, A_RAYS = (
@@ -311,17 +312,11 @@ def _check_tables(dev, meta, tables):
         raise ValueError("bad Perlin table")
 
 
-def _device_kind(t):
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no fused AD step for device {t.device}")
-    return t.device.type
-
-
 def ad_step_fwd(meta, cfg, tables, t_step, fstate, istate, keys, pix, sb):
     """One scan step (`cfg.k_sub` sub-steps) on the state's device: the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors. Returns
     (fstate', istate', keys')."""
-    if _device_kind(fstate) == "cpu":
+    if device.kind(fstate, "fused AD step") == "cpu":
         return ad_step_fwd_plain(meta, cfg, tables, t_step, fstate, istate,
                                  keys, pix, sb)
     from miniraytracer_tpu_torch.utils import kernels
@@ -363,7 +358,7 @@ def ad_step_bwd(meta, cfg, tables, t_step, f_res, istate, keys, pix, sb, cot_f,
     the table cotangents are ADDED to (and returned). The kernel sums lanes
     with floating-point atomics, so `d_tab` varies from run to run by about
     1e-6 relative."""
-    if _device_kind(f_res) == "cpu":
+    if device.kind(f_res, "fused AD step") == "cpu":
         d_f, d_new = ad_step_bwd_plain(meta, cfg, tables, t_step, f_res,
                                        istate, keys, pix, sb, cot_f)
         return d_f, d_new if d_tab is None else d_tab.add_(d_new)

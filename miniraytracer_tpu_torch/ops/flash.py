@@ -1,0 +1,319 @@
+"""Dense nearest-hit sweeps: for every ray the closest triangle, or the closest
+sphere, over ALL primitives of the set. Port of the dense tier of
+`miniraytracer_tpu/ops/flash.py` (`flash_tri_hit`, `flash_sphere_hit`).
+
+Moller-Trumbore is bilinear in (ray origin, ray direction), and the sphere
+quadratic's b and c are too once the moving centre is written as affine in
+the ray time. So each per-pair quantity is an inner product of a row of
+per-primitive coefficients with a per-ray feature vector:
+
+    triangles: det, uu, vv, tn = <(T, 16) coefficient rows, [1, ro, rd, ro (x) rd]>
+    spheres:   b, c            = <(S, 24) rows (17 used), [1, ro, rd, ro.rd,
+                                  |ro|^2, time, time^2, time*ro, time*rd]>
+
+The JAX package computes them as matrix products inside its kernels and keeps
+a running (min t, first index) per ray. Here the kernels are
+`csrc/flash.cu`: one thread per ray holds the features in registers, a block
+stages a tile of coefficient rows in shared memory, and every thread sweeps
+the tile in index order with a strict `<`, so the lowest index wins a tie.
+The sums are taken term by term in column order. The coefficient tables keep
+the JAX layout (24 columns for spheres, 7 of them zero); the row and ray
+padding of the TPU tiles is gone.
+
+Beside each kernel is its plain PyTorch version (`*_plain`), with the same
+term-by-term sums. The wrappers launch the kernel for CUDA tensors and run
+the plain version for CPU tensors. Dead lanes arrive as NaN rays and come
+back as misses (t = INF, index 0).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from miniraytracer_tpu_torch.ops.vecmath import V3, vcross, vsqrt
+from miniraytracer_tpu_torch.scene import types as T
+from miniraytracer_tpu_torch.utils import device
+
+INF = 3.0e38
+TRI_EPS = 1e-5  # triangle.cpp:220
+NUM_FEATURES = 16  # triangle features
+SPH_FEATURES = 24  # sphere table width of the JAX package
+SPH_USED = 17  # columns that carry a feature; the rest are zero
+
+# rays of one slice of the plain sweeps: bounds the (prims, rays) temporaries
+PLAIN_RAY_CHUNK = 16384
+
+# Launch counts of the two CUDA kernels (never the plain versions).
+tri_launches = 0
+sphere_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Coefficient tables and ray features
+# ---------------------------------------------------------------------------
+
+
+def tri_coefficients(m: V3, u: V3, v: V3, active):
+    """Per-triangle coefficient rows, four (T, 16) tables for det/uu/vv/tn:
+
+        raw_det = rd.(v x u)
+        raw_uu  = ro.(rd x v) - m.(rd x v)
+        raw_vv  = -ro.(rd x u) + m.(rd x u)
+        raw_tn  = (ro - m).(u x v)
+
+    Feature order: [1, ro(3), rd(3), ro_i*rd_j (9, i major)]. Inactive rows
+    are all zero (det = 0: never valid)."""
+    zeros = torch.zeros_like(m.x)
+
+    def rows(const, ro_c, rd_c, ord_c):
+        cols = [const, *ro_c, *rd_c]
+        cols += [ord_c.get((i, j), zeros) for i in range(3) for j in range(3)]
+        return torch.stack(cols, dim=1)
+
+    def eps_outer(w: V3, s=1.0):
+        # e_ijk w_k as {(i, j): coefficient}
+        return {(0, 1): s * w.z, (0, 2): -s * w.y, (1, 0): -s * w.z,
+                (1, 2): s * w.x, (2, 0): s * w.y, (2, 1): -s * w.x}
+
+    z3 = (zeros, zeros, zeros)
+    vxu, vxm, uxm, uxv = vcross(v, u), vcross(v, m), vcross(u, m), vcross(u, v)
+    c_det = rows(zeros, z3, tuple(vxu), {})
+    c_uu = rows(zeros, z3, tuple(-x for x in vxm), eps_outer(v))
+    c_vv = rows(zeros, z3, tuple(uxm), eps_outer(u, -1.0))
+    c_tn = rows(-(m.x * uxv.x + m.y * uxv.y + m.z * uxv.z), tuple(uxv), z3, {})
+    act = active.to(torch.float32)[:, None]
+    return c_det * act, c_uu * act, c_vv * act, c_tn * act
+
+
+def scene_tri_coefficients(scene: T.SceneData):
+    cols = lambda t: V3(t[:, 0], t[:, 1], t[:, 2])
+    return tri_coefficients(cols(scene.tri_m), cols(scene.tri_u),
+                            cols(scene.tri_v), scene.tri_active)
+
+
+def ray_features(ro: V3, rd: V3) -> torch.Tensor:
+    """(16, N) triangle feature matrix."""
+    rows = [torch.ones_like(ro.x), *ro, *rd]
+    rows += [o * d for o in ro for d in rd]
+    return torch.stack(rows)
+
+
+def sphere_coefficients(scene: T.SceneData):
+    """Per-sphere coefficient rows (cb, cc), each (S, 24), for the quadratic's
+    b = oc.rd and c = |oc|^2 - r^2 with the moving centre (sphere.h:24-31)
+    affine in ray time: cen(time) = P + time*Q. Inactive rows get 1.5e38
+    added to c's constant (disc < 0: never hit)."""
+    cols = lambda t: V3(t[:, 0], t[:, 1], t[:, 2])
+    c0, c1 = cols(scene.sph_c0), cols(scene.sph_c1)
+    t0, t1, mov, r = scene.sph_t0, scene.sph_t1, scene.sph_moving, scene.sph_radius
+    denom = torch.where(mov > 0, t1 - t0, 1.0)
+    alpha = torch.where(mov > 0, 1.0 / denom, 0.0)
+    beta = torch.where(mov > 0, -t0 / denom, 0.0)
+    dc = c1 - c0
+    P = c0 + dc * beta
+    Q = dc * alpha
+    zeros = torch.zeros_like(r)
+    ones = torch.ones_like(r)
+
+    def row(const, ro_c, rd_c, rord, rosq, t_c, t2_c, tro_c, trd_c):
+        cols_ = [const, *ro_c, *rd_c, rord, rosq, t_c, t2_c, *tro_c, *trd_c]
+        cols_ += [zeros] * (SPH_FEATURES - len(cols_))
+        return torch.stack(cols_, dim=1)
+
+    z3 = (zeros, zeros, zeros)
+    cb = row(zeros, z3, (-P.x, -P.y, -P.z), ones, zeros, zeros, zeros,
+             z3, (-Q.x, -Q.y, -Q.z))
+    psq = P.x * P.x + P.y * P.y + P.z * P.z
+    pq = P.x * Q.x + P.y * Q.y + P.z * Q.z
+    qsq = Q.x * Q.x + Q.y * Q.y + Q.z * Q.z
+    cc = row(psq - r * r + torch.where(~scene.sph_active, INF * 0.5, 0.0),
+             (-2.0 * P.x, -2.0 * P.y, -2.0 * P.z), z3,
+             zeros, ones, 2.0 * pq, qsq,
+             (-2.0 * Q.x, -2.0 * Q.y, -2.0 * Q.z), z3)
+    return cb, cc
+
+
+def sphere_ray_features(ro: V3, rd: V3, time) -> torch.Tensor:
+    """(24, N) sphere feature matrix (17 rows used, then zeros)."""
+    rows = [torch.ones_like(time), *ro, *rd,
+            ro.x * rd.x + ro.y * rd.y + ro.z * rd.z,
+            ro.x * ro.x + ro.y * ro.y + ro.z * ro.z,
+            time, time * time,
+            time * ro.x, time * ro.y, time * ro.z,
+            time * rd.x, time * rd.y, time * rd.z]
+    rows += [torch.zeros_like(time)] * (SPH_FEATURES - len(rows))
+    return torch.stack(rows)
+
+
+def coefficients_from_numpy(tables):
+    """Coefficient tables made elsewhere (the JAX package's, as numpy arrays)
+    as the float32 CPU tensors the sweeps take."""
+    return tuple(torch.as_tensor(np.asarray(t, np.float32).copy()) for t in tables)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def _dot_rows(table, f, width):
+    """(P, width) . (width, n) -> (P, n), summed term by term in column
+    order, as the kernels sum (no library matrix product: its summation
+    order is not fixed, and c cancels heavily on a radius-1000 sphere)."""
+    acc = table[:, 0:1] * f[0:1]
+    for k in range(1, width):
+        acc = acc + table[:, k:k + 1] * f[k:k + 1]
+    return acc
+
+
+def _running_min(cand):
+    """(min t, first index of it) over the primitive axis; INF rows -> 0."""
+    t = torch.amin(cand, dim=0)
+    # the lowest index that attains the minimum (torch.min's own index is
+    # documented as the first of equal minima for no device)
+    first = torch.argmax((cand == t[None, :]).to(torch.uint8), dim=0)
+    idx = torch.where(t < INF, first, 0).to(torch.int32)
+    return t, idx
+
+
+def _check_rays(n, **tensors):
+    for name, t in tensors.items():
+        if t.shape != (n,):
+            raise ValueError(f"{name} must have shape ({n},), got {tuple(t.shape)}")
+
+
+def flash_tri_hit_plain(coeffs, ro: V3, rd: V3, inside, tmin):
+    """Plain PyTorch version of `flash_tri_hit`, on any device."""
+    c_det, c_uu, c_vv, c_tn = coeffs
+    n = ro.x.shape[0]
+    ts, idxs = [], []
+    for s in range(0, n, PLAIN_RAY_CHUNK):
+        sl = slice(s, s + PLAIN_RAY_CHUNK)
+        f = ray_features(V3(*(c[sl] for c in ro)), V3(*(c[sl] for c in rd)))
+        det, uu, vv, tn = (_dot_rows(c, f, NUM_FEATURES)
+                           for c in (c_det, c_uu, c_vv, c_tn))
+        # backfaces (triangle.cpp:226-235) only for a ray inside a medium
+        sign = torch.where((inside[sl][None, :] > 0) & (det < 0.0), -1.0, 1.0)
+        sdet, suu, svv = det * sign, uu * sign, vv * sign
+        t = tn / det  # 0/0 on inactive rows: masked by sdet >= TRI_EPS
+        valid = ((sdet >= TRI_EPS) & (suu >= 0.0) & (svv >= 0.0)
+                 & (suu + svv <= sdet) & (t >= tmin))
+        t_c, i_c = _running_min(torch.where(valid, t, INF))
+        ts.append(t_c)
+        idxs.append(i_c)
+    return torch.cat(ts), torch.cat(idxs)
+
+
+def flash_sphere_hit_plain(coeffs, ro: V3, rd: V3, time, inside, tmin):
+    """Plain PyTorch version of `flash_sphere_hit`, on any device."""
+    cb, cc = coeffs
+    n = time.shape[0]
+    ts, idxs = [], []
+    for s in range(0, n, PLAIN_RAY_CHUNK):
+        sl = slice(s, s + PLAIN_RAY_CHUNK)
+        f = sphere_ray_features(V3(*(c[sl] for c in ro)),
+                                V3(*(c[sl] for c in rd)), time[sl])
+        b = _dot_rows(cb, f, SPH_USED)
+        c = _dot_rows(cc, f, SPH_USED)
+        disc = b * b - c
+        ok = disc > 0.0
+        sq = vsqrt(torch.where(ok, disc, 0.0))
+        t_front = -b - sq
+        t_back = -b + sq
+        front_ok = ok & (t_front > tmin)
+        back_ok = ok & (inside[sl][None, :] > 0) & (t_back > tmin)
+        cand = torch.where(front_ok, t_front, torch.where(back_ok, t_back, INF))
+        t_c, i_c = _running_min(cand)
+        ts.append(t_c)
+        idxs.append(i_c)
+    return torch.cat(ts), torch.cat(idxs)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_kernel_args(dev, n, width, tables, lanes_f32, inside):
+    rows = tables[0].shape[0]
+    for t in tables:
+        if (t.device != dev or t.dtype != torch.float32
+                or tuple(t.shape) != (rows, width) or not t.is_contiguous()):
+            raise ValueError(f"coefficient tables must be contiguous float32 "
+                             f"({rows}, {width}) tensors on {dev}")
+    for t in lanes_f32:
+        if (t.device != dev or t.dtype != torch.float32 or t.shape != (n,)
+                or not t.is_contiguous()):
+            raise ValueError(f"ray components must be contiguous float32 "
+                             f"({n},) tensors on {dev}")
+    if (inside.device != dev or inside.dtype != torch.int32
+            or inside.shape != (n,) or not inside.is_contiguous()):
+        raise ValueError(f"inside must be a contiguous int32 ({n},) tensor on {dev}")
+    if n >= 2 ** 31 - 1024 or rows >= 2 ** 24:
+        raise ValueError("too many rays or primitives for int32 indexing")
+    return rows
+
+
+def _launch(fn_name, tables, lanes, inside, extra):
+    """Launch one sweep of csrc/flash.cu on the current stream."""
+    from miniraytracer_tpu_torch.utils import kernels
+
+    dev, n = inside.device, inside.shape[0]
+    t_out = torch.empty((n,), dtype=torch.float32, device=dev)
+    i_out = torch.empty((n,), dtype=torch.int32, device=dev)
+    lib = kernels.load("flash")
+    fn = getattr(lib, fn_name)
+    ptrs = [*tables, *lanes, inside, t_out, i_out]
+    fn.argtypes = ([ctypes.c_void_p] * len(ptrs)
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*[t.data_ptr() for t in ptrs], *extra, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} failed: {kernels.error_string(lib, rc)}")
+    return t_out, i_out
+
+
+def flash_tri_hit(coeffs, ro: V3, rd: V3, inside, tmin):
+    """Closest triangle hit over ALL triangles for each ray.
+
+    coeffs: (c_det, c_uu, c_vv, c_tn), each (T, 16), from `tri_coefficients`.
+    ro, rd: V3 of (N,) float32; inside (N,) int32 (backfaces count only when
+    > 0); t >= tmin. Returns (t (N,) f32 with INF for a miss, idx (N,) i32):
+    the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    n = inside.shape[0]
+    _check_rays(n, **{f"ro.{k}": c for k, c in zip("xyz", ro)},
+                **{f"rd.{k}": c for k, c in zip("xyz", rd)})
+    if device.kind(inside, "nearest-hit sweep") == "cpu":
+        return flash_tri_hit_plain(coeffs, ro, rd, inside, tmin)
+    global tri_launches
+    rows = _check_kernel_args(inside.device, n, NUM_FEATURES, coeffs,
+                              [*ro, *rd], inside)
+    out = _launch("mrt_flash_tri_hit", coeffs, [*ro, *rd], inside,
+                  (n, rows, ctypes.c_float(tmin)))
+    tri_launches += 1
+    return out
+
+
+def flash_sphere_hit(coeffs, ro: V3, rd: V3, time, inside, tmin):
+    """Closest sphere hit over ALL spheres for each ray: the front root when
+    > tmin, the back root only when inside > 0 (sphere.cpp:33-43).
+
+    coeffs: (cb, cc), each (S, 24), from `sphere_coefficients`. Returns
+    (t, idx) as `flash_tri_hit`."""
+    n = inside.shape[0]
+    _check_rays(n, time=time, **{f"ro.{k}": c for k, c in zip("xyz", ro)},
+                **{f"rd.{k}": c for k, c in zip("xyz", rd)})
+    if device.kind(inside, "nearest-hit sweep") == "cpu":
+        return flash_sphere_hit_plain(coeffs, ro, rd, time, inside, tmin)
+    global sphere_launches
+    rows = _check_kernel_args(inside.device, n, SPH_FEATURES, coeffs,
+                              [*ro, *rd, time], inside)
+    out = _launch("mrt_flash_sphere_hit", coeffs, [*ro, *rd, time], inside,
+                  (n, rows, ctypes.c_float(tmin)))
+    sphere_launches += 1
+    return out

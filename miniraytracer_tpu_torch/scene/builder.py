@@ -1,7 +1,8 @@
 """Host-side scene compiler: Python construction API -> SoA SceneData tables.
 
 Mirrors `miniraytracer_tpu/scene/builder.py` for the primitives the fused
-class uses (spheres, rects, triangles, boxes, volumes). Everything is built
+class and the hybrid renderer use (spheres, rects, triangles, boxes, volumes,
+const/checker/Perlin/image textures). Everything is built
 in NumPy on the host, exactly as the JAX package builds it, and becomes
 CPU tensors at the end; `SceneData.to(device)` moves it.
 """
@@ -53,6 +54,7 @@ class SceneBuilder:
         self.volumes = []  # (btype, bparams[12], density, mat)
         self.materials = []  # (type, tex, param)
         self.textures = []  # (type, c0, c1, scale, img)
+        self.images = []  # (H,W,3) float32 arrays in [0,1]
         self.lights = []  # (ptype, idx)
         self.camera = None
         self.use_sky = True
@@ -70,6 +72,15 @@ class SceneBuilder:
 
     def tex_perlin(self, scale):
         self.textures.append((T.TEX_PERLIN, np.ones(3, _F), np.zeros(3, _F), float(scale), 0))
+        return len(self.textures) - 1
+
+    def tex_image(self, img):
+        """Image texture; `img` is (H,W,3) uint8 or float in [0,1]."""
+        img = np.asarray(img)
+        if img.dtype == np.uint8:
+            img = img.astype(_F) / 255.0
+        self.images.append(img.astype(_F))
+        self.textures.append((T.TEX_IMAGE, np.ones(3, _F), np.zeros(3, _F), 0.0, len(self.images) - 1))
         return len(self.textures) - 1
 
     # --- materials ---
@@ -219,6 +230,24 @@ class SceneBuilder:
         (mt, mtex, mpar), _ = pack(self.materials, [i_, i_, s_], (0, 0, 0))
         (xt, xc0, xc1, xsc, ximg), _ = pack(self.textures, [i_, v3, v3, s_, i_], (0, np.zeros(3), np.zeros(3), 0, 0))
 
+        # image atlas: one (IH, IW) plane per image, padded to the largest,
+        # texels packed 0x00RRGGBB; each image's true (h, w) rides in the
+        # otherwise unused tex_c1 row of its texture
+        if self.images:
+            hh = max(im.shape[0] for im in self.images)
+            ww = max(im.shape[1] for im in self.images)
+            ims = np.zeros((len(self.images), hh, ww), np.uint32)
+            for i, im in enumerate(self.images):
+                q = np.clip(np.rint(im * 255.0), 0, 255).astype(np.uint32)
+                ims[i, : im.shape[0], : im.shape[1]] = (
+                    (q[..., 0] << 16) | (q[..., 1] << 8) | q[..., 2])
+        else:
+            ims = np.zeros((1, 1, 1), np.uint32)
+        for xi, t in enumerate(self.textures):
+            if t[0] == T.TEX_IMAGE:
+                h, w = self.images[t[4]].shape[:2]
+                xc1[xi] = np.array([h, w, 0], _F)
+
         pv, px, py, pz = perlin_tables()
 
         return SceneData(
@@ -239,9 +268,7 @@ class SceneBuilder:
             mat_type=_t(mt), mat_tex=_t(mtex), mat_param=_t(mpar),
             tex_type=_t(xt), tex_c0=_t(xc0), tex_c1=_t(xc1),
             tex_scale=_t(xsc), tex_img=_t(ximg),
-            # no image textures in the port yet: the one-texel placeholder
-            # atlas the JAX builder makes for imageless scenes
-            images=_t(np.zeros((1, 1, 1), np.uint32)),
+            images=_t(ims),
             perlin_vec=_t(pv), perlin_px=_t(px), perlin_py=_t(py),
             perlin_pz=_t(pz),
             camera=self.camera,
@@ -249,7 +276,7 @@ class SceneBuilder:
             lights=tuple((int(t), int(i)) for t, i in self.lights),
             name=self.name,
             has_perlin=any(t[0] == T.TEX_PERLIN for t in self.textures),
-            has_image=False,
+            has_image=any(t[0] == T.TEX_IMAGE for t in self.textures),
             has_boxes=bool(self.boxes),
         )
 

@@ -19,3 +19,12 @@ def resolve(device=None) -> torch.device:
             "no CUDA device: this entry point runs on the GPU unless it is "
             "given device='cpu'")
     return dev
+
+
+def kind(t: torch.Tensor, what: str) -> str:
+    """"cpu" or "cuda" for a tensor a kernel wrapper was given: the plain
+    version runs for the first, the kernel for the second. Anything else
+    raises, naming `what`."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {what} for device {t.device}")
+    return t.device.type

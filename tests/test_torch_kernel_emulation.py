@@ -25,9 +25,12 @@ import torch
 from miniraytracer_tpu_torch.models import scenes as tscenes
 from miniraytracer_tpu_torch.ops import bounce as tbounce
 from miniraytracer_tpu_torch.ops import bounce_ad as tad
+from miniraytracer_tpu_torch.ops import flash as tflash
+from miniraytracer_tpu_torch.ops import hybrid as thybrid
+from miniraytracer_tpu_torch.ops.vecmath import V3
 from miniraytracer_tpu_torch.parallel import train as ttrain
 from miniraytracer_tpu_torch.scene.builder import SceneBuilder
-from miniraytracer_tpu_torch.utils import kernels
+from miniraytracer_tpu_torch.utils import device, kernels
 from tests.test_torch_bounce import _synthetic
 
 torch.set_num_threads(1)
@@ -46,17 +49,19 @@ def _scene(name):
 
 @pytest.fixture(scope="module")
 def host_libraries(tmp_path_factory):
-    """{name: CDLL} of bounce.cu and bounce_ad.cu built for the host."""
+    """{name: CDLL} of every csrc/*.cu built for the host (blocks of one
+    thread, for which the emulation's __syncthreads() is right)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the host emulation of the kernels")
     out = tmp_path_factory.mktemp("host_kernels")
     libs = {}
-    for name in ("bounce", "bounce_ad"):
+    for name in ("bounce", "bounce_ad", "flash", "hybrid"):
         path = out / f"lib{name}_host.so"
         subprocess.run(
             [gxx, "-O1", "-std=c++17", "-ffp-contract=off", "-x", "c++",
-             "-DMRT_HOST_EMULATION", "-DMRT_AD_THREADS=1", "-shared", "-fPIC",
+             "-DMRT_HOST_EMULATION", "-DMRT_AD_THREADS=1", "-DMRT_FLASH_THREADS=1",
+             "-shared", "-fPIC",
              "-o", str(path), str(kernels.CSRC / f"{name}.cu")],
             check=True, capture_output=True, text=True, timeout=300)
         lib = ctypes.CDLL(str(path))
@@ -75,7 +80,7 @@ def emulated(host_libraries, monkeypatch):
     monkeypatch.setattr(kernels, "load", lambda name: host_libraries[name])
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: Stream())
-    monkeypatch.setattr(tad, "_device_kind", lambda t: "cuda")
+    monkeypatch.setattr(device, "kind", lambda t, what: "cuda")
 
 
 @pytest.mark.parametrize("name", SCENES)
@@ -132,7 +137,7 @@ def test_emulated_scan_gradients_match_plain_autograd(emulated, monkeypatch, nam
     out = {}
     for plain in (False, True):
         if plain:  # CPU tensors take the plain versions again
-            monkeypatch.setattr(tad, "_device_kind", lambda t: "cpu")
+            monkeypatch.setattr(device, "kind", lambda t, what: "cpu")
         leaves = ttrain.TrainParams(*(p.clone().requires_grad_(True)
                                       for p in ttrain.extract_params(scene)))
         launches = tad.fwd_launches
@@ -174,6 +179,117 @@ def test_emulated_fused_render_matches_plain(host_libraries, monkeypatch, name):
     assert tbounce.launches == launches + 1
     ap, cp, rp = tbounce.render_wavefront_fused_pixels_plain(
         scene, pix, 0, 4, 1000.0, **kw)
+    assert torch.equal(ck, cp) and torch.equal(rk, rp)
+    frame = lambda a, c: a / c.clamp_min(1)[:, None].float()
+    torch.testing.assert_close(frame(ak, ck), frame(ap, cp), rtol=0, atol=1e-5)
+
+
+def _sweep_rays(n, seed):
+    """Rays towards the scene's middle, a third of them inside a medium, the
+    last 9 NaN (dead lanes)."""
+    rs = np.random.default_rng(seed)
+    ro = rs.uniform(-6, 6, (n, 3)).astype(np.float32)
+    ro[:, 1] = np.abs(ro[:, 1]) + 0.3
+    rd = rs.uniform(-3, 3, (n, 3)).astype(np.float32) - ro
+    rd = (rd / np.linalg.norm(rd, axis=1, keepdims=True)).astype(np.float32)
+    ro[-9:], rd[-9:] = np.nan, np.nan
+    v3 = lambda a: V3(*(torch.as_tensor(np.ascontiguousarray(a[:, k])) for k in range(3)))
+    inside = torch.as_tensor((rs.random(n) < 0.3).astype(np.int32))
+    return v3(ro), v3(rd), torch.as_tensor(rs.random(n, dtype=np.float32)), inside
+
+
+@pytest.mark.parametrize("kind,count", [("sphere", 67), ("sphere", 486), ("tri", 65),
+                                        ("tri", 300)])
+def test_emulated_flash_kernels_match_plain(emulated, kind, count):
+    """B7 and B8 (`flash.cu`) against their plain versions: the same sums in
+    the same order, so t and the index are EQUAL, NaN lanes and ties
+    included (a primitive count that is no multiple of the kernel's tile)."""
+    n = 333
+    ro, rd, time, inside = _sweep_rays(n, count)
+    if kind == "sphere":
+        scene = (tscenes.random_spheres(1.0) if count == 486
+                 else tscenes.hybrid_probe(1.0, count - 1, 0))
+        assert scene.n_spheres == count
+        # a twin of a sphere that is hit, further down the table: the lower
+        # index must win
+        cb, cc = tflash.sphere_coefficients(scene)
+        args = (ro, rd, time, inside, tbounce.TMIN)
+        t0, i0 = tflash.flash_sphere_hit_plain((cb, cc), *args)
+        twin = int(torch.mode(i0[(t0 < 3e38) & (i0 > 0) & (i0 < count - 2)]).values)
+        cb[count - 2], cc[count - 2] = cb[twin], cc[twin]
+        coeffs = (cb, cc)
+        kernel, plain = tflash.flash_sphere_hit, tflash.flash_sphere_hit_plain
+        counter = "sphere_launches"
+    else:
+        scene = tscenes.hybrid_probe(1.0, 4, count)
+        coeffs = [c.clone() for c in tflash.scene_tri_coefficients(scene)]
+        for c in coeffs:
+            c[count - 2] = c[3]
+            c[5] = 0.0  # an inactive row: 0/0 inside the sweep
+        # aim half of the rays at triangles
+        cen = (scene.tri_m + (scene.tri_u + scene.tri_v) / 3)[torch.arange(160) % count]
+        d = cen - torch.stack(list(ro), 1)[:160]
+        d = d / d.norm(dim=1, keepdim=True)
+        rd = V3(*(torch.cat([d[:, k], c[160:]]) for k, c in enumerate(rd)))
+        args = (ro, rd, inside, tbounce.TMIN)
+        kernel, plain = tflash.flash_tri_hit, tflash.flash_tri_hit_plain
+        counter = "tri_launches"
+    before = getattr(tflash, counter)
+    tk, ik = kernel(coeffs, *args)
+    assert getattr(tflash, counter) == before + 1
+    tp, ip = plain(coeffs, *args)
+    assert torch.equal(ik, ip) and torch.equal(tk, tp)
+    hit = tp < 3e38
+    assert hit.sum() > 20 and not hit[-9:].any() and (ik[-9:] == 0).all()
+    assert not (ik[hit] == count - 2).any()
+    if kind == "sphere":
+        assert (ik[hit] == twin).any() and (inside[hit] > 0).any()
+
+
+def _hybrid_scene(name):
+    if name == "hybrid_probe":
+        return tscenes.hybrid_probe(1.0, 80, 100)
+    return getattr(tscenes, name)(1.0)
+
+
+@pytest.mark.parametrize("name", ["hybrid_probe", "random_spheres", "earth"])
+def test_emulated_hybrid_render_matches_plain(emulated, name):
+    """B4 (`hybrid.cu`) in its three modes (5 candidate rows, 11 rows, image
+    texels), fed by the emulated B7/B8: every step of a whole render against
+    the plain step on the same state (integers, keys, ray counts and the alive
+    row equal; floats within 1e-6 of the row's scale), then the whole render
+    through the kernels against the plain one."""
+    scene = _hybrid_scene(name)
+    w = h = 12
+    sq, bounces = 2, 6
+    pix = torch.arange(w * h, dtype=torch.int32)
+    meta, tables = thybrid.pack_scene_hybrid(scene)
+    cfg = thybrid.StepConfig(meta=meta, tables=tuple(tables), images=scene.images,
+                             width=w, height=h, sq=sq, max_bounces=bounces,
+                             max_lum=1000.0, sample_lo=0, n_samples=sq * sq)
+    accel = thybrid.hybrid_accel(scene)
+    state = thybrid.initial_state(scene, pix, 0, sq * sq, width=w, height=h, spp_sq=sq)
+    launches, steps = thybrid.step_launches, 0
+    while bool((state[0][thybrid.R_ALIVE] > 0).any()):
+        f, i = state[0], state[1]
+        ext = torch.stack(thybrid._external_candidate(
+            scene, accel, thybrid.state_rays(f, i), f[thybrid.R_ALIVE] > 0,
+            tbounce.TMIN, plain=True))
+        fk, ik, kk, rk = thybrid.hybrid_step(cfg, *state, pix, ext)
+        fp, ip, kp, rp = thybrid.hybrid_step_plain(cfg, *state, pix, ext)
+        assert torch.equal(ik, ip) and torch.equal(kk, kp) and torch.equal(rk, rp), steps
+        assert torch.equal(fk[thybrid.R_ALIVE], fp[thybrid.R_ALIVE]), steps
+        scale = fp.abs().amax(dim=1, keepdim=True).clamp_min(1.0)
+        assert ((fk - fp).abs() <= 1e-6 * scale).all(), steps
+        state = (fp, ip, kp, rp)
+        steps += 1
+    assert thybrid.step_launches == launches + steps and steps > bounces
+    assert int(state[1][thybrid.I_COUNT].sum()) == w * h * sq * sq
+
+    kw = dict(width=w, height=h, max_bounces=bounces, spp_sq=sq)
+    ak, ck, rk = thybrid.render_wavefront_hybrid_pixels(scene, pix, 0, sq * sq, 1000.0, **kw)
+    ap, cp, rp = thybrid.render_wavefront_hybrid_pixels(scene, pix, 0, sq * sq, 1000.0,
+                                                        plain=True, **kw)
     assert torch.equal(ck, cp) and torch.equal(rk, rp)
     frame = lambda a, c: a / c.clamp_min(1)[:, None].float()
     torch.testing.assert_close(frame(ak, ck), frame(ap, cp), rtol=0, atol=1e-5)

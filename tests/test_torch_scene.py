@@ -30,6 +30,8 @@ from miniraytracer_tpu_torch.scene import types as ttypes
 torch.set_num_threads(1)
 
 FUSED = ["two_spheres", "perlin_spheres", "cornell_box", "cornell_smoke"]
+# the scenes the port builds: the fused class and the hybrid renderer's two
+PORTED = FUSED + ["random_spheres", "earth"]
 PORT = pathlib.Path(__file__).resolve().parent.parent / "miniraytracer_tpu_torch"
 
 
@@ -60,10 +62,22 @@ def _assert_same(a: dict, b: dict):
             assert a[k] == b[k], k
 
 
-@pytest.mark.parametrize("name", FUSED)
+@pytest.mark.parametrize("name", PORTED)
 def test_scene_fields_equal_jax(name):
     _assert_same(_leaves(getattr(jscenes, name)(1.0)),
                  _leaves(getattr(tscenes, name)(1.0)))
+
+
+def test_hybrid_probe_equals_its_build_by_the_jax_package():
+    """The procedural scene of the hybrid renderer's tests, put together by
+    either package's SceneBuilder."""
+    from miniraytracer_tpu.scene.builder import SceneBuilder as JSceneBuilder
+
+    for n_sph, n_tri in ((80, 0), (80, 200)):
+        a = tscenes.hybrid_probe(1.0, n_sph, n_tri, builder_cls=JSceneBuilder)
+        b = tscenes.hybrid_probe(1.0, n_sph, n_tri)
+        _assert_same(_leaves(a), _leaves(b))
+        assert b.n_spheres == n_sph + 1 and b.n_tris == max(n_tri, 1)
 
 
 @pytest.mark.parametrize("name", FUSED)
@@ -81,11 +95,12 @@ def test_pack_scene_equals_jax(name):
     np.testing.assert_array_equal(j256, ttabs[8].numpy())
 
 
-@pytest.mark.parametrize("name", FUSED)
+@pytest.mark.parametrize("name", PORTED)
 def test_from_numpy_equals_port_build(name):
     carried = ttypes.from_numpy(_leaves(getattr(jscenes, name)(1.0)))
     _assert_same(_leaves(carried), _leaves(getattr(tscenes, name)(1.0)))
-    assert tbounce.can_fuse(carried)
+    assert tbounce.can_fuse(carried) == (name in FUSED)
+    assert carried.images.dtype == torch.uint32  # the image atlas too
 
 
 def test_scene_to_device_keeps_everything():
@@ -97,7 +112,7 @@ def test_scene_to_device_keeps_everything():
 
 def test_unported_scenes_raise():
     for sid, name in enumerate(tscenes.SCENE_NAMES):
-        if name in FUSED:
+        if name in PORTED:
             assert tscenes.select_scene(sid, 1.0).name == name
         else:
             with pytest.raises(NotImplementedError, match=name):

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 import miniraytracer_tpu_torch as mrt
-from miniraytracer_tpu_torch.ops import bounce
+from miniraytracer_tpu_torch.ops import bounce, flash, hybrid
 from miniraytracer_tpu_torch.utils import kernels
 
 torch.set_num_threads(1)
@@ -38,8 +38,11 @@ def test_pick_renderer_raises_outside_fused_class():
     m = b.lambertian(b.tex_const([0.5, 0.5, 0.5]))
     for i in range(65):
         b.sphere([i * 0.1, 0, 0], 0.05, m)
+    # a sphere light among more than 64 spheres: outside the hybrid class too
+    # (its light pdf reads the in-table sphere set)
+    b.add_light(b.sphere([0, 3, 0], 0.5, b.diffuse_light(b.tex_const([4, 4, 4]))))
     scene = b.build()
-    assert not bounce.can_fuse(scene)
+    assert not bounce.can_fuse(scene) and not hybrid.can_hybrid(scene)
     with pytest.raises(NotImplementedError, match="render_workqueue"):
         mrt.pick_renderer(scene)
     with pytest.raises(NotImplementedError):
@@ -47,6 +50,10 @@ def test_pick_renderer_raises_outside_fused_class():
     pix = torch.arange(64, dtype=torch.int32)
     with pytest.raises(ValueError, match="fused class"):
         bounce.render_wavefront_fused_pixels(
+            scene, pix, 0, 1, 1000.0, width=8, height=8, max_bounces=4,
+            spp_sq=1)
+    with pytest.raises(ValueError, match="hybrid class"):
+        hybrid.render_wavefront_hybrid_pixels(
             scene, pix, 0, 1, 1000.0, width=8, height=8, max_bounces=4,
             spp_sq=1)
 
@@ -68,9 +75,13 @@ def test_render_subset_of_pixels_equals_full_frame():
 
 
 def test_kernel_params_match_the_cuda_source():
-    src = (kernels.CSRC / "bounce.cu").read_text()
+    src = (kernels.CSRC / "physics.cuh").read_text()
     n = int(re.search(r"static_assert\(P_COUNT == (\d+)", src).group(1))
     assert n == bounce._N_IPARAMS
+    # the hybrid step appends its switches and the atlas's shape
+    extra = re.search(r"enum HybridParamIdx \{ H_EXT_MAT = P_COUNT,([^}]*)H_COUNT \}",
+                      (kernels.CSRC / "hybrid.cu").read_text()).group(1)
+    assert hybrid._N_IPARAMS == n + 1 + extra.count(",")
     meta, _ = bounce.pack_scene(mrt.scenes.cornell_box(1.0))
     ip = bounce.kernel_params(meta, 250000, 0, 64, width=500, height=500,
                               max_bounces=32, spp_sq=8)
@@ -102,6 +113,31 @@ def test_render_on_cuda_launches_kernel_and_matches_plain():
     plain = (a / c.clamp_min(1)[:, None].float()).reshape(32, 32, 3)
     assert abs(int(r.sum()) - stats["rays"]) <= 1e-3 * stats["rays"]
     assert ((frame - plain).abs().amax(-1) < 1e-4).float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["random_spheres", "earth", "hybrid_probe"])
+def test_hybrid_render_on_cuda_launches_kernels_and_matches_plain(name):
+    """The hybrid renderer on the card: the sweeps and the step launch their
+    kernels, and the frame agrees with the plain versions' at
+    `chip_smoke.compare`'s tolerances."""
+    _need_cuda()
+    import chip_smoke
+
+    scene = (mrt.scenes.hybrid_probe(1.0, 80, 200) if name == "hybrid_probe"
+             else getattr(mrt.scenes, name)(1.0)).to("cuda")
+    pix = torch.arange(32 * 32, dtype=torch.int32, device="cuda")
+    kw = dict(width=32, height=32, max_bounces=8, spp_sq=2)
+    before = hybrid.step_launches, flash.sphere_launches, flash.tri_launches
+    stats = {}
+    k = hybrid.render_wavefront_hybrid_pixels(scene, pix, 0, 4, 1000.0, stats=stats, **kw)
+    steps = stats["steps"]
+    assert hybrid.step_launches == before[0] + steps
+    assert flash.sphere_launches == before[1] + (0 if name == "earth" else steps)
+    assert flash.tri_launches == before[2] + (steps if name == "hybrid_probe" else 0)
+    p = hybrid.render_wavefront_hybrid_pixels(scene, pix, 0, 4, 1000.0, plain=True, **kw)
+    assert hybrid.step_launches == before[0] + steps  # the plain run launched nothing
+    chip_smoke.compare(name, k, p)
 
 
 # ---------------------------------------------------------------------------
