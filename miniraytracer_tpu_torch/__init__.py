@@ -1,15 +1,18 @@
 """miniraytracer_tpu_torch — the PyTorch/CUDA port of miniraytracer_tpu.
 
-Three paths are ported. For the fused scene class (cornell_box,
+Four paths are ported. For the fused scene class (cornell_box,
 cornell_smoke, two_spheres, perlin_spheres): the forward path tracer
 (`render`, kernel `csrc/bounce.cu`) and the differentiable train step
 (`make_train_step`, kernels `csrc/bounce_ad.cu`: the scan step and its
-hand-derived backward). For scenes beyond it (random_spheres with its ~490
-spheres and materials; earth through `ops.hybrid.render_wavefront_hybrid`):
-the hybrid forward renderer, which `render` picks by the JAX package's rule:
-dense nearest-hit kernels (`csrc/flash.cu`) feeding one step kernel
-(`csrc/hybrid.cu`). The kernels are hand-written CUDA, built with nvcc on
-first use.
+hand-derived backward). For scenes beyond it, `render` picks by the JAX
+package's rule between the hybrid forward renderer (random_spheres with its
+~490 spheres and materials: dense nearest-hit kernels of `csrc/flash.cu`
+feeding one step kernel of `csrc/hybrid.cu`) and the work-queue renderer
+(`render_workqueue`: earth with its image texture, book2_final with 1006
+spheres and 400 boxes: the clustered sphere sweeps of `csrc/flash.cu` and the
+shade kernel of `csrc/hybrid.cu`, lanes claiming (pixel, sample) items from a
+global queue). The kernels are hand-written CUDA, built with nvcc on first
+use.
 
 The entry points run on the NVIDIA GPU: `device=None` means "cuda", the scene
 is moved there, and with no card the call raises. `device="cpu"` runs the
@@ -22,6 +25,7 @@ Quick start:
     scene = mrt.scenes.cornell_box(aspect=1.0)
     frame, stats = mrt.render(scene, 500, 500, spp=64)      # on the GPU
     frame, stats = mrt.render(mrt.scenes.random_spheres(1.0), 500, 500, 64)
+    frame, stats = mrt.render(mrt.scenes.book2_final(1.0), 500, 500, 64)
 
     step = mrt.make_train_step(width=500, height=500, max_bounces=32,
                                spp_step=128)
@@ -36,6 +40,7 @@ from miniraytracer_tpu_torch.scene.builder import SceneBuilder  # noqa: F401
 from miniraytracer_tpu_torch.models import scenes  # noqa: F401
 from miniraytracer_tpu_torch.models.integrator import (  # noqa: F401
     render_auto as render,
+    render_workqueue,
     pick_renderer,
 )
 from miniraytracer_tpu_torch.parallel.train import (  # noqa: F401

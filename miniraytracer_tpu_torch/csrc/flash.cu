@@ -1,9 +1,11 @@
-// Dense nearest-hit sweeps for Hopper (sm_90a): for every ray the closest
-// triangle, or the closest sphere, over ALL primitives of the set.
+// Nearest-hit sweeps for Hopper (sm_90a): for every ray the closest triangle,
+// or the closest sphere, of a set. Two dense sweeps over ALL primitives, and
+// two sphere sweeps over Morton-ordered clusters with a bounding box each
+// (further down: "Clustered sphere sweeps").
 //
-// Replaces the TPU kernels `miniraytracer_tpu/ops/flash.py::_kernel` (launched
-// by `flash_tri_hit`) and `::_sphere_kernel` (launched by `flash_sphere_hit`).
-// They compute, per (primitive, ray) pair, inner products of a row of
+// The dense sweeps replace the TPU kernels
+// `miniraytracer_tpu/ops/flash.py::_kernel` (launched by `flash_tri_hit`) and
+// `::_sphere_kernel` (launched by `flash_sphere_hit`). They compute, per (primitive, ray) pair, inner products of a row of
 // per-primitive coefficients with a per-ray feature vector:
 //
 //   triangles: det, uu, vv, tn = <(T,16) rows, [1, ro, rd, ro (x) rd]>;
@@ -74,6 +76,57 @@ __device__ __forceinline__ float dot_row(const float* __restrict__ row, const fl
 #pragma unroll
   for (int k = 1; k < F; ++k) acc = acc + row[k] * f[k];
   return acc;
+}
+
+// the 17 sphere features of a ray
+__device__ __forceinline__ void sphere_features(const float (&ro)[3], const float (&rd)[3],
+                                                float time, float (&f)[SPH_F]) {
+  f[0] = 1.0f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    f[1 + a] = ro[a];
+    f[4 + a] = rd[a];
+    f[11 + a] = time * ro[a];
+    f[14 + a] = time * rd[a];
+  }
+  f[7] = ro[0] * rd[0] + ro[1] * rd[1] + ro[2] * rd[2];
+  f[8] = ro[0] * ro[0] + ro[1] * ro[1] + ro[2] * ro[2];
+  f[9] = time;
+  f[10] = time * time;
+}
+
+// The root of one (ray, sphere) pair from its b and c: the front root if
+// > tmin, else the back root, and that only for a ray inside a medium. Every
+// sphere sweep of this file goes through here.
+__device__ __forceinline__ bool sphere_root(float b, float c, bool inside, float tmin, float& t) {
+  const float disc = b * b - c;
+  const bool ok = disc > 0.0f;
+  const float sq = sqrtf(ok ? disc : 0.0f);
+  const float t_front = -b - sq;
+  const float t_back = -b + sq;
+  const bool front_ok = ok && t_front > tmin;
+  const bool back_ok = ok && inside && t_back > tmin;
+  t = front_ok ? t_front : t_back;
+  return front_ok || back_ok;
+}
+
+// One ray against `rows` spheres whose b and c coefficient rows (SPH_F words
+// each) start at `cb`, `cc`; they are numbered from `base`. The
+// running (best_t, best_i) changes only on a strictly nearer hit, so the
+// first of equal hits in row order stays.
+__device__ __forceinline__ void sweep_sphere_rows(const float* __restrict__ cb,
+                                                  const float* __restrict__ cc, int rows,
+                                                  int base, const float (&f)[SPH_F],
+                                                  bool inside, float tmin, float& best_t,
+                                                  int& best_i) {
+  for (int r = 0; r < rows; ++r) {
+    float t;
+    if (sphere_root(dot_row<SPH_F>(cb + r * SPH_F, f), dot_row<SPH_F>(cc + r * SPH_F, f),
+                    inside, tmin, t) && t < best_t) {
+      best_t = t;
+      best_i = base + r;
+    }
+  }
 }
 
 __global__ void __launch_bounds__(MRT_FLASH_THREADS)
@@ -152,18 +205,7 @@ flash_sphere_kernel(const float* __restrict__ cb, const float* __restrict__ cc,
   const float time = time_in[src];
   const bool inside = inside_in[src] > 0;
   float f[SPH_F];
-  f[0] = 1.0f;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    f[1 + a] = ro[a];
-    f[4 + a] = rd[a];
-    f[11 + a] = time * ro[a];
-    f[14 + a] = time * rd[a];
-  }
-  f[7] = ro[0] * rd[0] + ro[1] * rd[1] + ro[2] * rd[2];
-  f[8] = ro[0] * ro[0] + ro[1] * ro[1] + ro[2] * ro[2];
-  f[9] = time;
-  f[10] = time * time;
+  sphere_features(ro, rd, time, f);
   float best_t = INF;
   int best_i = 0;
   for (int base = 0; base < S; base += TILE) {
@@ -176,29 +218,220 @@ flash_sphere_kernel(const float* __restrict__ cb, const float* __restrict__ cc,
       tile[1][k] = cc[(base + r) * SPH_W + col];
     }
     __syncthreads();
-    for (int r = 0; r < rows; ++r) {
-      const float b = dot_row<SPH_F>(&tile[0][r * SPH_F], f);
-      const float c = dot_row<SPH_F>(&tile[1][r * SPH_F], f);
-      const float disc = b * b - c;
-      const bool ok = disc > 0.0f;
-      const float sq = sqrtf(ok ? disc : 0.0f);
-      const float t_front = -b - sq;
-      const float t_back = -b + sq;
-      const bool front_ok = ok && t_front > tmin;
-      const bool back_ok = ok && inside && t_back > tmin;
-      if (front_ok || back_ok) {
-        const float t = front_ok ? t_front : t_back;
-        if (t < best_t) {
-          best_t = t;
-          best_i = base + r;
+    sweep_sphere_rows(tile[0], tile[1], rows, base, f, inside, tmin, best_t, best_i);
+  }
+  if (live) {
+    t_out[lane] = best_t;
+    i_out[lane] = best_i;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Clustered sphere sweeps
+// ---------------------------------------------------------------------------
+// Replace the TPU kernels `miniraytracer_tpu/ops/flash.py::_sph_gated_kernel`
+// (launched by `flash_sphere_hit_gated`, 512..4095 spheres) and
+// `::_sph_streamed_kernel` (launched by `flash_sphere_hit_streamed`, any
+// count). Both find what the dense sphere sweep finds, over a table that
+// `sph_cull_build` (ops/flash.py) has put into Morton order and cut into
+// clusters of `block` rows with an axis-aligned box each: `bounds` is (8, NC)
+// = lo xyz, hi xyz, two unused rows; `orig_of` maps a row of the permuted
+// table back to the sphere's own number. A cluster is swept only for a ray
+// that passes its slab test and could still find something nearer there:
+//
+//   tfar > max(tnear, tmin)  and  tnear < best_t
+//
+// The streamed sweep starts every ray from a seed distance and returns it
+// where nothing is nearer; the gated one starts from INF. The plain PyTorch
+// versions are `flash_sphere_hit_gated_plain` and
+// `flash_sphere_hit_streamed_plain`.
+//
+// Design. The gate is per RAY and the work follows it. A thread owns a ray:
+// it tests the ray against each cluster's box, in table (Morton) order. A
+// block of 128 rays votes (`__syncthreads_or`); a cluster that any of them
+// wants is staged in shared memory, 128 rows at a time, column-major so that
+// the lanes of a warp read neighbouring words. Then each warp takes the rays
+// of its own that want the cluster, one after the other (`__ballot_sync`):
+// for one such ray the 32 lanes split the cluster's rows between them, each
+// runs `sphere_pair` on its rows with the ray's features (kept in shared
+// memory a warp, read as a broadcast), and a shuffle reduction gives the
+// (nearest t, first row with it), which the ray's own lane takes if strictly
+// nearer than its best. So a warp spends time on (ray, cluster) pairs that
+// passed the gate and on nothing else; with one thread sweeping its own ray a
+// warp would sweep a cluster whole as soon as ONE of its 32 rays wanted it,
+// and in a path tracer's queue the rays of a warp point everywhere. The pairs
+// are computed as the dense sweep computes them, so all sphere sweeps agree
+// to the bit wherever they test the same pair; a strict `<` over rows in
+// order keeps the first winner in Morton order; a miss reports index 0.
+//
+// What the TPU kernels have and this has not: their gate is per block of 512
+// rays (a tile of the matrix unit is all or nothing), so the streamed one
+// sorts the rays by origin cell, compacts a front-to-back cluster list per
+// block in a pre-pass and breaks off early, and reads a transposed copy of
+// the table through a two-slot DMA buffer. With a per-ray gate none of that
+// is needed. Both entry points are one loop here; on the TPU they differ in
+// where the table lives.
+//
+// All comparisons are explicit: a NaN ray (a dead lane) fails every slab
+// test, sweeps nothing and comes back (INF or its seed, 0); 1/rd is +-inf on
+// an axis-parallel ray and the test still orders.
+//
+// What bounds them: fp32 instructions of the pairs actually tested, plus
+// 3 x 9 + 4 a (ray, cluster) slab test; bytes are negligible.
+
+// lanes that share a ray's cluster; a host emulation runs warps of one lane
+#ifndef MRT_WARP
+#define MRT_WARP 32
+#endif
+static_assert(MRT_FLASH_THREADS % MRT_WARP == 0, "whole warps a block");
+
+constexpr int CL_ROWS = 128;  // cluster rows staged at a time
+// words between two columns of the staged tile: one more than the rows, so
+// that the staging stores (column fastest) spread over the banks as the
+// sweep's loads (row fastest) do
+constexpr int CL_STRIDE = CL_ROWS + 1;
+constexpr unsigned FULL_WARP = 0xffffffffu;
+
+// one (ray, sphere) pair from column-major staged rows: tile[k * CL_STRIDE + row]
+__device__ __forceinline__ bool sphere_pair_staged(const float* __restrict__ tb,
+                                                   const float* __restrict__ tc, int row,
+                                                   const float (&f)[SPH_F], bool inside,
+                                                   float tmin, float& t) {
+  float b = tb[row] * f[0];
+  float c = tc[row] * f[0];
+#pragma unroll
+  for (int k = 1; k < SPH_F; ++k) {
+    b = b + tb[k * CL_STRIDE + row] * f[k];
+    c = c + tc[k * CL_STRIDE + row] * f[k];
+  }
+  return sphere_root(b, c, inside, tmin, t);
+}
+
+// does the ray want cluster j: it crosses the box beyond tmin, and enters it
+// before its current best
+__device__ __forceinline__ bool slab_gate(const float* __restrict__ bounds, int nc, int j,
+                                          const float (&ro)[3], const float (&ird)[3],
+                                          float tmin, float best_t) {
+  float tnear = 0.0f, tfar = 0.0f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float t0 = (bounds[a * nc + j] - ro[a]) * ird[a];
+    const float t1 = (bounds[(3 + a) * nc + j] - ro[a]) * ird[a];
+    const bool up = t0 < t1;
+    const float lo = up ? t0 : t1, hi = up ? t1 : t0;
+    tnear = (a == 0 || lo > tnear) ? lo : tnear;
+    tfar = (a == 0 || hi < tfar) ? hi : tfar;
+  }
+  const float from = tnear > tmin ? tnear : tmin;
+  return tfar > from && tnear < best_t;
+}
+
+// The cluster loop of both entry points; `seed_in` is null for "from INF".
+__device__ __forceinline__ void clustered_sphere_sweep(
+    const float* __restrict__ cb, const float* __restrict__ cc, const float* __restrict__ bounds,
+    const int* __restrict__ orig_of, const float* __restrict__ rox,
+    const float* __restrict__ roy, const float* __restrict__ roz, const float* __restrict__ rdx,
+    const float* __restrict__ rdy, const float* __restrict__ rdz,
+    const float* __restrict__ time_in, const float* __restrict__ seed_in,
+    const int* __restrict__ inside_in, float* __restrict__ t_out, int* __restrict__ i_out, int n,
+    int nc, int block, float tmin) {
+  __shared__ float tile[2][SPH_F * CL_STRIDE];
+  __shared__ float feat[MRT_FLASH_THREADS / MRT_WARP][SPH_F * MRT_WARP];
+  const int lane_id = threadIdx.x % MRT_WARP;
+  float* const my_feat = feat[threadIdx.x / MRT_WARP];
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = lane < n;
+  const int src = live ? lane : n - 1;  // a thread past the end still helps its block
+  const float ro[3] = {rox[src], roy[src], roz[src]};
+  const float rd[3] = {rdx[src], rdy[src], rdz[src]};
+  const float ird[3] = {1.0f / rd[0], 1.0f / rd[1], 1.0f / rd[2]};
+  const bool inside = inside_in[src] > 0;
+  {
+    float f[SPH_F];
+    sphere_features(ro, rd, time_in[src], f);
+#pragma unroll
+    for (int k = 0; k < SPH_F; ++k) my_feat[k * MRT_WARP + lane_id] = f[k];
+  }
+  __syncwarp();
+  float best_t = seed_in ? seed_in[src] : INF;
+  int best_i = -1;
+  for (int j = 0; j < nc; ++j) {
+    const bool want = live && slab_gate(bounds, nc, j, ro, ird, tmin, best_t);
+    if (!__syncthreads_or(want)) continue;  // also: the previous tile is no longer read
+    const unsigned wanting = __ballot_sync(FULL_WARP, want);
+    for (int sub = 0; sub < block; sub += CL_ROWS) {
+      const int base = j * block + sub;
+      const int rows = min(CL_ROWS, block - sub);
+      if (sub > 0) __syncthreads();
+      for (int k = threadIdx.x; k < rows * SPH_F; k += blockDim.x) {
+        const int row = k / SPH_F, col = k - row * SPH_F;
+        tile[0][col * CL_STRIDE + row] = cb[(size_t)(base + row) * SPH_W + col];
+        tile[1][col * CL_STRIDE + row] = cc[(size_t)(base + row) * SPH_W + col];
+      }
+      __syncthreads();
+      // the rays of this warp that want the cluster, one after the other
+      for (unsigned todo = wanting; todo != 0; todo &= todo - 1) {
+        const int owner = __ffs((int)todo) - 1;
+        const bool ray_inside = __shfl_sync(FULL_WARP, (int)inside, owner) != 0;
+        float f[SPH_F];
+#pragma unroll
+        for (int k = 0; k < SPH_F; ++k) f[k] = my_feat[k * MRT_WARP + owner];
+        float t_min = INF;
+        int row_min = CL_ROWS;
+        for (int row = lane_id; row < rows; row += MRT_WARP) {
+          float t;
+          if (sphere_pair_staged(tile[0], tile[1], row, f, ray_inside, tmin, t) && t < t_min) {
+            t_min = t;
+            row_min = row;
+          }
+        }
+        // the nearest over the lanes, the lowest row among equals
+        for (int off = MRT_WARP / 2; off > 0; off /= 2) {
+          const float t_o = __shfl_xor_sync(FULL_WARP, t_min, off);
+          const int row_o = __shfl_xor_sync(FULL_WARP, row_min, off);
+          if (t_o < t_min || (t_o == t_min && row_o < row_min)) {
+            t_min = t_o;
+            row_min = row_o;
+          }
+        }
+        if (lane_id == owner && t_min < best_t) {
+          best_t = t_min;
+          best_i = base + row_min;
         }
       }
     }
   }
   if (live) {
     t_out[lane] = best_t;
-    i_out[lane] = best_i;
+    i_out[lane] = best_i >= 0 ? orig_of[best_i] : 0;
   }
+}
+
+__global__ void __launch_bounds__(MRT_FLASH_THREADS)
+flash_sphere_gated_kernel(const float* __restrict__ cb, const float* __restrict__ cc,
+                          const float* __restrict__ bounds, const int* __restrict__ orig_of,
+                          const float* __restrict__ rox, const float* __restrict__ roy,
+                          const float* __restrict__ roz, const float* __restrict__ rdx,
+                          const float* __restrict__ rdy, const float* __restrict__ rdz,
+                          const float* __restrict__ time_in, const int* __restrict__ inside_in,
+                          float* __restrict__ t_out, int* __restrict__ i_out, int n, int nc,
+                          int block, float tmin) {
+  clustered_sphere_sweep(cb, cc, bounds, orig_of, rox, roy, roz, rdx, rdy, rdz, time_in, nullptr,
+                         inside_in, t_out, i_out, n, nc, block, tmin);
+}
+
+__global__ void __launch_bounds__(MRT_FLASH_THREADS)
+flash_sphere_streamed_kernel(const float* __restrict__ cb, const float* __restrict__ cc,
+                             const float* __restrict__ bounds, const int* __restrict__ orig_of,
+                             const float* __restrict__ rox, const float* __restrict__ roy,
+                             const float* __restrict__ roz, const float* __restrict__ rdx,
+                             const float* __restrict__ rdy, const float* __restrict__ rdz,
+                             const float* __restrict__ time_in,
+                             const float* __restrict__ seed_in,
+                             const int* __restrict__ inside_in, float* __restrict__ t_out,
+                             int* __restrict__ i_out, int n, int nc, int block, float tmin) {
+  clustered_sphere_sweep(cb, cc, bounds, orig_of, rox, roy, roz, rdx, rdy, rdz, time_in, seed_in,
+                         inside_in, t_out, i_out, n, nc, block, tmin);
 }
 
 }  // namespace
@@ -230,6 +463,36 @@ int mrt_flash_sphere_hit(const float* cb, const float* cc, const float* rox, con
   const int blocks = (n + threads - 1) / threads;
   MRT_LAUNCH(flash_sphere_kernel, blocks, threads, 0, stream, cb, cc, rox, roy, roz, rdx, rdy,
              rdz, time, inside, t_out, i_out, n, S, tmin);
+  return (int)cudaGetLastError();
+}
+
+// The clustered sphere sweeps: tables (nc * block, 24) f32 in cluster order,
+// bounds (8, nc) f32, orig_of (nc * block,) i32; the streamed one also takes a
+// seed distance a ray, (n,) f32.
+int mrt_flash_sphere_gated(const float* cb, const float* cc, const float* bounds,
+                           const int* orig_of, const float* rox, const float* roy,
+                           const float* roz, const float* rdx, const float* rdy,
+                           const float* rdz, const float* time, const int* inside, float* t_out,
+                           int* i_out, int n, int nc, int block, float tmin, void* stream) {
+  if (n <= 0) return 0;
+  const int threads = MRT_FLASH_THREADS;
+  const int blocks = (n + threads - 1) / threads;
+  MRT_LAUNCH(flash_sphere_gated_kernel, blocks, threads, 0, stream, cb, cc, bounds, orig_of, rox,
+             roy, roz, rdx, rdy, rdz, time, inside, t_out, i_out, n, nc, block, tmin);
+  return (int)cudaGetLastError();
+}
+
+int mrt_flash_sphere_streamed(const float* cb, const float* cc, const float* bounds,
+                              const int* orig_of, const float* rox, const float* roy,
+                              const float* roz, const float* rdx, const float* rdy,
+                              const float* rdz, const float* time, const float* seed,
+                              const int* inside, float* t_out, int* i_out, int n, int nc,
+                              int block, float tmin, void* stream) {
+  if (n <= 0) return 0;
+  const int threads = MRT_FLASH_THREADS;
+  const int blocks = (n + threads - 1) / threads;
+  MRT_LAUNCH(flash_sphere_streamed_kernel, blocks, threads, 0, stream, cb, cc, bounds, orig_of,
+             rox, roy, roz, rdx, rdy, rdz, time, seed, inside, t_out, i_out, n, nc, block, tmin);
   return (int)cudaGetLastError();
 }
 

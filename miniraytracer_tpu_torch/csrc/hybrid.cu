@@ -1,4 +1,6 @@
-// Hybrid renderer's step kernel for Hopper (sm_90a).
+// The step kernels that take a hit candidate found outside them, for Hopper
+// (sm_90a): the hybrid renderer's wave step, and further down the work queue's
+// shade step.
 //
 // Replaces the TPU kernel `miniraytracer_tpu/ops/hybrid.py::_make_step_kernel`
 // (launched by `_step_call`). It computes what that kernel computes: ONE wave
@@ -57,6 +59,27 @@ __device__ __forceinline__ void store_row3(float* __restrict__ f, int row, int n
   f[(size_t)(row + 2) * n + lane] = v.z;
 }
 
+// a lane's candidate from its 5 (or, with EXT_MAT, 11) rows
+template <bool EXT_MAT>
+__device__ __forceinline__ ExtCand load_ext(const float* __restrict__ ext_in, int n, int lane) {
+  ExtCand ext{};
+  const float* e = ext_in + lane;
+  ext.t = e[0];
+  ext.nx = e[(size_t)n];
+  ext.ny = e[(size_t)2 * n];
+  ext.nz = e[(size_t)3 * n];
+  ext.mat = e[(size_t)4 * n];
+  if (EXT_MAT) {
+    ext.mtype = e[(size_t)5 * n];
+    ext.mparam = e[(size_t)6 * n];
+    ext.ar = e[(size_t)7 * n];
+    ext.ag = e[(size_t)8 * n];
+    ext.ab = e[(size_t)9 * n];
+    ext.img = e[(size_t)10 * n];
+  }
+  return ext;
+}
+
 template <bool EXT_MAT, bool IMAGE>
 __global__ void __launch_bounds__(128)
 hybrid_step_kernel(Tables tb, RenderParams P, Atlas atlas, const float* __restrict__ f_in,
@@ -82,21 +105,7 @@ hybrid_step_kernel(Tables tb, RenderParams P, Atlas atlas, const float* __restri
   s.key = k_in[lane];
   int rays = rays_in[lane];
   if (alive) {
-    ExtCand ext{};
-    const float* e = ext_in + lane;
-    ext.t = e[0];
-    ext.nx = e[(size_t)n];
-    ext.ny = e[(size_t)2 * n];
-    ext.nz = e[(size_t)3 * n];
-    ext.mat = e[(size_t)4 * n];
-    if (EXT_MAT) {
-      ext.mtype = e[(size_t)5 * n];
-      ext.mparam = e[(size_t)6 * n];
-      ext.ar = e[(size_t)7 * n];
-      ext.ag = e[(size_t)8 * n];
-      ext.ab = e[(size_t)9 * n];
-      ext.img = e[(size_t)10 * n];
-    }
+    const ExtCand ext = load_ext<EXT_MAT>(ext_in, n, lane);
     alive = live_step<true, EXT_MAT, IMAGE>(tb, P, (uint32_t)pix_in[lane], s, rays, ext, atlas);
   } else {
     s.depth += 1;
@@ -113,6 +122,74 @@ hybrid_step_kernel(Tables tb, RenderParams P, Atlas atlas, const float* __restri
   i_out[(size_t)I_DEPTH * n + lane] = s.depth;
   k_out[lane] = s.key;
   rays_out[lane] = rays;
+}
+
+// ---------------------------------------------------------------------------
+// The work queue's shade step
+// ---------------------------------------------------------------------------
+// Replaces the TPU kernel `miniraytracer_tpu/ops/hybrid.py::_make_shade_kernel`
+// (launched by `_shade_call`, for `make_workqueue_shader`). The work-queue
+// renderer (`models/integrator.py::render_workqueue_pixels`) keeps claiming,
+// merging and regeneration in tensor operations, because they are global
+// (a prefix sum, a scatter); only the per-bounce shading is a kernel: the
+// bounce with the outside candidate, sky or emission into the radiance, the
+// scatter weight into the throughput, and whether the lane goes on. No merge,
+// no regeneration, no camera. The plain PyTorch version is `shade_step_plain`
+// in `miniraytracer_tpu_torch/ops/hybrid.py`.
+//
+// Row contract (as the TPU kernel's): in f32 (15, N) = ro(3) rd(3) time
+// beta(3) radiance(3) depth_ok alive; inside (N,) i32; the key already folded
+// with the depth (N,); ext (5 or 11, N). Out f32 (13, N) = cont p(3) new_rd(3)
+// beta(3) radiance(3), and new_inside (N,) i32. p, new_rd and new_inside are
+// zero where cont is 0; a dead lane keeps its throughput and radiance.
+//
+// Design. One thread per lane, as the hybrid step: `shade_advance` of
+// physics.cuh, so both steps shade with the same code. The image texel of a
+// lane that goes on is fetched and multiplied into the throughput HERE; the
+// TPU kernel emits a texel-index row and its caller gathers and multiplies
+// after the launch. The TPU kernel's padding of the lanes to a multiple of
+// 1024 and its (8, 128) tiling are not kept.
+//
+// What bounds it: as the hybrid step, per-lane fp32 work of the shading
+// against 17 + 5 or 11 words read and 14 written per lane.
+
+constexpr int SH_RO = 0, SH_RD = 3, SH_TIME = 6, SH_BETA = 7, SH_RAD = 10, SH_DOK = 13,
+              SH_ALIVE = 14;
+constexpr int SO_CONT = 0, SO_P = 1, SO_RD = 4, SO_BETA = 7, SO_RAD = 10;
+
+template <bool EXT_MAT, bool IMAGE>
+__global__ void __launch_bounds__(128)
+shade_step_kernel(Tables tb, RenderParams P, Atlas atlas, const float* __restrict__ f_in,
+                  const int* __restrict__ inside_in, const uint32_t* __restrict__ k_in,
+                  const float* __restrict__ ext_in, float* __restrict__ f_out,
+                  int* __restrict__ i_out) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = P.n;
+  if (lane >= n) return;
+  V3 beta = load_row3(f_in, SH_BETA, n, lane);
+  V3 rad = load_row3(f_in, SH_RAD, n, lane);
+  bool cont = false;
+  V3 p = v3(0.0f, 0.0f, 0.0f), new_rd = v3(0.0f, 0.0f, 0.0f);
+  int new_inside = 0;
+  if (f_in[(size_t)SH_ALIVE * n + lane] > 0.0f) {
+    const ExtCand ext = load_ext<EXT_MAT>(ext_in, n, lane);
+    Bounce b;
+    cont = shade_advance<true, EXT_MAT, IMAGE>(
+        tb, P, load_row3(f_in, SH_RO, n, lane), load_row3(f_in, SH_RD, n, lane),
+        f_in[(size_t)SH_TIME * n + lane], inside_in[lane], k_in[lane],
+        f_in[(size_t)SH_DOK * n + lane] > 0.0f, ext, atlas, beta, rad, b);
+    if (cont) {
+      p = b.p;
+      new_rd = b.new_rd;
+      new_inside = b.new_inside;
+    }
+  }
+  f_out[(size_t)SO_CONT * n + lane] = cont ? 1.0f : 0.0f;
+  store_row3(f_out, SO_P, n, lane, p);
+  store_row3(f_out, SO_RD, n, lane, new_rd);
+  store_row3(f_out, SO_BETA, n, lane, beta);
+  store_row3(f_out, SO_RAD, n, lane, rad);
+  i_out[lane] = new_inside;
 }
 
 }  // namespace
@@ -140,6 +217,28 @@ int mrt_hybrid_step(const float* sph, const float* rect, const float* tri, const
                    : (im ? hybrid_step_kernel<false, true> : hybrid_step_kernel<false, false>);
   MRT_LAUNCH(kernel, blocks, threads, 0, stream, tb, P, atlas, f_in, i_in, k_in, rays_in, pix,
              ext, f_out, i_out, k_out, rays_out);
+  return (int)cudaGetLastError();
+}
+
+// Launch one shade step on `stream`: pointers as `mrt_hybrid_step`'s, the lane
+// rows as the row contract above says; of `ip` the lane count, the scene's
+// dimensions and the five appended words are read.
+int mrt_shade_step(const float* sph, const float* rect, const float* tri, const float* box,
+                   const float* vol, const float* mat, const float* tex, const float* cam,
+                   const float* ptab, const uint32_t* images, const float* f_in,
+                   const int* inside_in, const uint32_t* k_in, const float* ext, float* f_out,
+                   int* i_out, const int* ip, void* stream) {
+  Tables tb{sph, rect, tri, box, vol, mat, tex, cam, ptab};
+  RenderParams P = read_render_params(ip, 0.0f);
+  Atlas atlas{images, ip[H_N_IMG], ip[H_IH], ip[H_IW]};
+  if (P.n <= 0) return 0;
+  const int threads = 128;
+  const int blocks = (P.n + threads - 1) / threads;
+  const bool em = ip[H_EXT_MAT] != 0, im = ip[H_IMAGE] != 0;
+  auto kernel = em ? (im ? shade_step_kernel<true, true> : shade_step_kernel<true, false>)
+                   : (im ? shade_step_kernel<false, true> : shade_step_kernel<false, false>);
+  MRT_LAUNCH(kernel, blocks, threads, 0, stream, tb, P, atlas, f_in, inside_in, k_in, ext, f_out,
+             i_out);
   return (int)cudaGetLastError();
 }
 

@@ -1,15 +1,14 @@
 """The built-in scenes the port renders (scene.cpp:51-119, 206-383), compiled
 to SceneData tables exactly as `miniraytracer_tpu/models/scenes.py` builds
-them: the four of the fused class, and random_spheres and earth for the hybrid
-renderer.
+them: the four of the fused class, random_spheres for the hybrid renderer,
+earth and book2_final for the work queue.
 
 Scene-gen randomness replicates the reference's deterministic main-thread
 stream (PCG32 with the fixed constants of main.cpp:302), so object placement
 matches the reference and the JAX package bit for bit.
 
-The other three scenes (random_spheres_2, book2_final, triangles) need
-renderers or mesh files that are not ported yet; `select_scene` raises for
-them.
+The other two scenes (random_spheres_2, triangles) need a renderer or mesh
+files that are not ported yet; `select_scene` raises for them.
 """
 
 from __future__ import annotations
@@ -20,7 +19,7 @@ import os
 import numpy as np
 
 from miniraytracer_tpu_torch.ops.rng import Pcg32
-from miniraytracer_tpu_torch.scene.builder import SceneBuilder
+from miniraytracer_tpu_torch.scene.builder import SceneBuilder, _roty_fwd
 
 # scene ids (scene.h:6-17)
 SCENE_RANDOM_SPHERES = 0
@@ -221,6 +220,62 @@ def cornell_smoke(aspect):
     return b.build()
 
 
+def book2_final(aspect):
+    """Shirley book-2 final (scene.cpp:386-478): 400 ground boxes, 1006
+    spheres (one moving, one of glass around a fog, one with the earth map,
+    one of Perlin marble, a cloud of 1000), a global fog and a rect light."""
+    g = _scene_rng()
+    b = SceneBuilder()
+    b.name = "book2_final"
+    _cornell_camera(b, aspect, pos=(450, 278, -560), look=(200, 278, 300))
+
+    earth_m = b.lambertian(b.tex_image(_load_earthmap()))
+    white = b.lambertian(b.tex_const([0.73, 0.73, 0.73]))
+    green = b.lambertian(b.tex_const([0.48, 0.83, 0.53]))
+    light = b.diffuse_light(b.tex_const([7.0, 7.0, 7.0]))
+    orange = b.lambertian(b.tex_const([0.7, 0.3, 0.1]))
+    perlin = b.lambertian(b.tex_perlin(0.05))
+
+    # 20x20 ground boxes of random heights (scene.cpp:409-421)
+    nb = 20
+    for i in range(nb):
+        for j in range(nb):
+            w = 100.0
+            x0 = -1000 + i * w
+            z0 = -1000 + j * w
+            y1 = 100 * (g.randf() + 0.01)
+            b.box([x0, 0, z0], [x0 + w, y1, z0 + w], green)
+
+    l = b.xz_rect(423, 123, 147, 412, 554, light)
+    b.sphere([400, 400, 200], 50, orange, center1=[430, 400, 200], t0=0, t1=1)
+    b.sphere([260, 150, 45], 50, b.dielectric(1.5))
+    b.sphere([0, 150, 145], 50, b.metal(b.tex_const([0.8, 0.8, 0.9]), 0.1))
+    b.sphere([400, 200, 400], 100, earth_m)
+    b.sphere([220, 280, 300], 80, perlin)
+
+    # the blue subsurface sphere: a glass boundary around a volume
+    b.sphere([360, 150, 145], 70, b.dielectric(1.5))
+    b.volume_sphere([360, 150, 145], 70, 0.2, b.tex_const([0.2, 0.4, 0.9]))
+    # the global fog
+    b.volume_sphere([0, 0, 0], 5000, 0.0001, b.tex_const([1.0, 1.0, 1.0]))
+
+    # a cloud of 1000 white spheres in a rotated and translated box
+    # (scene.cpp:445-449), the rotation and translation baked into the centres
+    R = _roty_fwd(15.0)
+    off = np.array([-100, 270, 395], np.float32)
+    for _ in range(1000):
+        # constructor arguments right to left: the draws land z, y, x
+        z_ = 165 * g.randf()
+        y_ = 165 * g.randf()
+        x_ = 165 * g.randf()
+        c = np.array([x_, y_, z_], np.float32)
+        b.sphere(R @ c + off, 10, white)
+
+    b.add_light(l)
+    b.use_sky = False
+    return b.build()
+
+
 def ad_probe(aspect=1.0, builder_cls=SceneBuilder):
     """Not one of the reference's scenes: the branches of the differentiable
     step that the four scenes above do not reach (a sphere light, metal
@@ -286,6 +341,7 @@ _GENERATORS = {
     SCENE_PERLIN_SPHERES: perlin_spheres,
     SCENE_CORNELL_BOX: cornell_box,
     SCENE_CORNELL_SMOKE: cornell_smoke,
+    SCENE_BOOK2_FINAL: book2_final,
 }
 
 
@@ -294,5 +350,5 @@ def select_scene(scene_id: int, aspect: float):
     if scene_id not in _GENERATORS:
         raise NotImplementedError(
             f"scene {SCENE_NAMES[scene_id]!r} is not ported yet: it needs the "
-            f"work-queue renderer or mesh files (see ROADMAP.md queue A)")
+            f"work queue's eager shading or mesh files (see ROADMAP.md queue A)")
     return _GENERATORS[scene_id](aspect)

@@ -1,6 +1,8 @@
-"""Dense nearest-hit sweeps: for every ray the closest triangle, or the closest
-sphere, over ALL primitives of the set. Port of the dense tier of
-`miniraytracer_tpu/ops/flash.py` (`flash_tri_hit`, `flash_sphere_hit`).
+"""Nearest-hit sweeps: for every ray the closest triangle, or the closest
+sphere, of a set. Port of `miniraytracer_tpu/ops/flash.py`'s dense tier
+(`flash_tri_hit`, `flash_sphere_hit`: ALL primitives for every ray) and of
+its clustered sphere sweeps (`sph_cull_build`, `flash_sphere_hit_gated`,
+`flash_sphere_hit_streamed`: see "Clustered sphere sweeps" below).
 
 Moller-Trumbore is bilinear in (ray origin, ray direction), and the sphere
 quadratic's b and c are too once the moving centre is written as affine in
@@ -46,9 +48,15 @@ SPH_USED = 17  # columns that carry a feature; the rest are zero
 # rays of one slice of the plain sweeps: bounds the (prims, rays) temporaries
 PLAIN_RAY_CHUNK = 16384
 
-# Launch counts of the two CUDA kernels (never the plain versions).
+# spheres of one Morton cluster (doubled while there would be more than 512
+# clusters, as in the JAX package, so that both packages cut the same clusters)
+SPH_CULL_BLOCK = 128
+
+# Launch counts of the CUDA kernels (never the plain versions).
 tri_launches = 0
 sphere_launches = 0
+gated_launches = 0
+streamed_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +215,21 @@ def flash_tri_hit_plain(coeffs, ro: V3, rd: V3, inside, tmin):
     return torch.cat(ts), torch.cat(idxs)
 
 
+def _sphere_candidates(cb, cc, f, inside, tmin):
+    """(S, n) hit distance of every (sphere, ray) pair, INF for none: the
+    front root if > tmin, else the back root, and that only when inside > 0."""
+    b = _dot_rows(cb, f, SPH_USED)
+    c = _dot_rows(cc, f, SPH_USED)
+    disc = b * b - c
+    ok = disc > 0.0
+    sq = vsqrt(torch.where(ok, disc, 0.0))
+    t_front = -b - sq
+    t_back = -b + sq
+    front_ok = ok & (t_front > tmin)
+    back_ok = ok & (inside[None, :] > 0) & (t_back > tmin)
+    return torch.where(front_ok, t_front, torch.where(back_ok, t_back, INF))
+
+
 def flash_sphere_hit_plain(coeffs, ro: V3, rd: V3, time, inside, tmin):
     """Plain PyTorch version of `flash_sphere_hit`, on any device."""
     cb, cc = coeffs
@@ -216,17 +239,7 @@ def flash_sphere_hit_plain(coeffs, ro: V3, rd: V3, time, inside, tmin):
         sl = slice(s, s + PLAIN_RAY_CHUNK)
         f = sphere_ray_features(V3(*(c[sl] for c in ro)),
                                 V3(*(c[sl] for c in rd)), time[sl])
-        b = _dot_rows(cb, f, SPH_USED)
-        c = _dot_rows(cc, f, SPH_USED)
-        disc = b * b - c
-        ok = disc > 0.0
-        sq = vsqrt(torch.where(ok, disc, 0.0))
-        t_front = -b - sq
-        t_back = -b + sq
-        front_ok = ok & (t_front > tmin)
-        back_ok = ok & (inside[sl][None, :] > 0) & (t_back > tmin)
-        cand = torch.where(front_ok, t_front, torch.where(back_ok, t_back, INF))
-        t_c, i_c = _running_min(cand)
+        t_c, i_c = _running_min(_sphere_candidates(cb, cc, f, inside[sl], tmin))
         ts.append(t_c)
         idxs.append(i_c)
     return torch.cat(ts), torch.cat(idxs)
@@ -268,7 +281,8 @@ def _launch(fn_name, tables, lanes, inside, extra):
     fn = getattr(lib, fn_name)
     ptrs = [*tables, *lanes, inside, t_out, i_out]
     fn.argtypes = ([ctypes.c_void_p] * len(ptrs)
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float if isinstance(x, ctypes.c_float) else ctypes.c_int
+                      for x in extra] + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -316,4 +330,217 @@ def flash_sphere_hit(coeffs, ro: V3, rd: V3, time, inside, tmin):
     out = _launch("mrt_flash_sphere_hit", coeffs, [*ro, *rd, time], inside,
                   (n, rows, ctypes.c_float(tmin)))
     sphere_launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Clustered sphere sweeps
+# ---------------------------------------------------------------------------
+# For a sphere set too large to test every pair: `sph_cull_build` sorts the
+# spheres along a Morton curve and cuts the sorted table into clusters of
+# `SPH_CULL_BLOCK` with a bounding box each. A ray sweeps a cluster only when
+# it crosses the box beyond tmin and enters it before its current best hit:
+#
+#     tfar > max(tnear, tmin)  and  tnear < best_t
+#
+# Clusters are visited in table order and a hit replaces the best only when
+# strictly nearer, so of two spheres at the same distance the FIRST IN MORTON
+# ORDER wins (the dense sweep gives the lowest original index). The gate is
+# per ray; the JAX package's kernels gate a block of 512 rays at once, so a
+# ray whose own slab test fails may still be tested there. Slab test and
+# quadratic are different float expressions: at a grazing hit on a cluster's
+# outermost sphere the clustered sweep can miss what the dense sweep (and the
+# JAX package) hits. Everywhere else the pairs are computed as the dense sweep
+# computes them, and the results are equal to the bit.
+#
+# `flash_sphere_hit_gated` (512..4095 spheres in the renderer) and
+# `flash_sphere_hit_streamed` (any count; it also takes a seed distance per
+# ray and returns it where nothing is nearer) are the JAX package's two entry
+# points, which differ there in where the table lives. Here they compute the
+# same function and their kernels share one cluster loop (csrc/flash.cu): a
+# thread gates its own ray, and the lanes of a warp share out the rows of a
+# cluster for each ray of theirs that wants it.
+
+
+def _spread3(x):
+    """Interleave the low 10 bits of x (int64) with two zero bits each."""
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def _pad_rows(x, mult, value):
+    rem = (-x.shape[0]) % mult
+    if rem == 0:
+        return x
+    pad = torch.full((rem, *x.shape[1:]), value, dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad])
+
+
+def sph_cull_build(scene: T.SceneData, coeffs, block: int | None = None):
+    """Morton-order the spheres into clusters of `block` with bounding boxes.
+
+    coeffs: (cb, cc) of `sphere_coefficients`, in scene order. The Morton key
+    is taken at the midpoint of a sphere's motion; a box spans both endpoints
+    of the motion with half-width |radius| (a negative radius is a hollow
+    shell of the same extent). Inactive spheres sort last, keep their
+    never-hit coefficients and contribute inverted boxes. Returns
+    ((cbp, ccp) tables in cluster order, zero rows up to a multiple of
+    `block`; bounds (8, NC) = lo xyz, hi xyz, two zero rows; orig_of (NC *
+    block,) int32: the scene index of each table row, 0 for padding)."""
+    cb, cc = coeffs
+    s_count = scene.sph_radius.shape[0]
+    if block is None:
+        block = SPH_CULL_BLOCK
+        while s_count > 512 * block:
+            block *= 2
+    act = scene.sph_active.to(torch.bool)
+    mov = scene.sph_moving > 0
+    r_abs = torch.abs(scene.sph_radius)
+
+    def qaxis(c):
+        lo = torch.amin(torch.where(act, c, INF))
+        hi = torch.amax(torch.where(act, c, -INF))
+        tq = torch.clamp((c - lo) / torch.clamp_min(hi - lo, 1e-30), 0.0, 0.999999)
+        return (tq * 1024.0).to(torch.int64)
+
+    ends = [(scene.sph_c0[:, a], torch.where(mov, scene.sph_c1[:, a], scene.sph_c0[:, a]))
+            for a in range(3)]
+    qx, qy, qz = (qaxis((c0 + c1) * 0.5) for c0, c1 in ends)
+    key = (_spread3(qx) << 2) | (_spread3(qy) << 1) | _spread3(qz)
+    key = torch.where(act, key, 0xFFFFFFFF)
+    perm = torch.argsort(key, stable=True)
+
+    orig_of = _pad_rows(perm.to(torch.int32), block, 0)
+    cbp = _pad_rows(cb[perm], block, 0.0)
+    ccp = _pad_rows(cc[perm], block, 0.0)
+    nc = cbp.shape[0] // block
+    los, his = [], []
+    for c0, c1 in ends:
+        lo_c = torch.where(act, torch.minimum(c0, c1) - r_abs, INF)
+        hi_c = torch.where(act, torch.maximum(c0, c1) + r_abs, -INF)
+        los.append(torch.amin(_pad_rows(lo_c[perm], block, INF).reshape(nc, block), dim=1))
+        his.append(torch.amax(_pad_rows(hi_c[perm], block, -INF).reshape(nc, block), dim=1))
+    zero = torch.zeros_like(los[0])
+    bounds = torch.stack(los + his + [zero, zero])
+    return (cbp.contiguous(), ccp.contiguous()), bounds.contiguous(), orig_of
+
+
+def _slab_gate(bounds, j, ro: V3, ird, tmin, best_t):
+    """Which rays want cluster j (see above). Comparisons only, in the
+    kernel's order: a NaN ray wants nothing."""
+    tnear = tfar = None
+    for a in range(3):
+        t0 = (bounds[a, j] - ro[a]) * ird[a]
+        t1 = (bounds[3 + a, j] - ro[a]) * ird[a]
+        up = t0 < t1
+        lo, hi = torch.where(up, t0, t1), torch.where(up, t1, t0)
+        tnear = lo if a == 0 else torch.where(lo > tnear, lo, tnear)
+        tfar = hi if a == 0 else torch.where(hi < tfar, hi, tfar)
+    start = torch.where(tnear > tmin, tnear, tmin)
+    return (tfar > start) & (tnear < best_t)
+
+
+def _clustered_sphere_hit_plain(cull, ro: V3, rd: V3, time, inside, tmin, t_seed,
+                                count=None):
+    (cbp, ccp), bounds, orig_of = cull
+    nc = bounds.shape[1]
+    block = cbp.shape[0] // nc
+    n = time.shape[0]
+    ts, idxs = [], []
+    for s in range(0, n, PLAIN_RAY_CHUNK):
+        sl = slice(s, s + PLAIN_RAY_CHUNK)
+        ro_c, rd_c = V3(*(c[sl] for c in ro)), V3(*(c[sl] for c in rd))
+        f = sphere_ray_features(ro_c, rd_c, time[sl])
+        ird = [1.0 / c for c in rd_c]
+        best_t = (torch.full_like(time[sl], INF) if t_seed is None
+                  else t_seed[sl].clone())
+        best_row = torch.full_like(inside[sl], -1, dtype=torch.int64)
+        for j in range(nc):
+            want = torch.nonzero(_slab_gate(bounds, j, ro_c, ird, tmin, best_t))[:, 0]
+            if count is not None:
+                count["clusters"] = count.get("clusters", 0) + want.numel()
+            if want.numel() == 0:
+                continue
+            rows = slice(j * block, (j + 1) * block)
+            t_c, i_c = _running_min(_sphere_candidates(
+                cbp[rows], ccp[rows], f[:, want], inside[sl][want], tmin))
+            better = t_c < best_t[want]
+            won = want[better]
+            best_t[won] = t_c[better]
+            best_row[won] = i_c[better].to(torch.int64) + j * block
+        ts.append(best_t)
+        idxs.append(torch.where(best_row >= 0, orig_of[best_row.clamp_min(0)], 0))
+    return torch.cat(ts), torch.cat(idxs).to(torch.int32)
+
+
+def flash_sphere_hit_gated_plain(cull, ro: V3, rd: V3, time, inside, tmin, count=None):
+    """Plain PyTorch version of `flash_sphere_hit_gated`, on any device.
+    `count`, a dict, gets under "clusters" the number of (ray, cluster) pairs
+    that passed the gate: the work the sweep did on these rays."""
+    return _clustered_sphere_hit_plain(cull, ro, rd, time, inside, tmin, None, count)
+
+
+def flash_sphere_hit_streamed_plain(cull, ro: V3, rd: V3, time, inside, tmin,
+                                    t_seed=None, count=None):
+    """Plain PyTorch version of `flash_sphere_hit_streamed`, on any device;
+    `count` as in `flash_sphere_hit_gated_plain`."""
+    return _clustered_sphere_hit_plain(cull, ro, rd, time, inside, tmin, t_seed, count)
+
+
+def _check_cull(cull, dev):
+    (cbp, ccp), bounds, orig_of = cull
+    nc = bounds.shape[1]
+    if (bounds.device != dev or bounds.dtype != torch.float32 or bounds.shape[0] != 8
+            or nc < 1 or not bounds.is_contiguous()):
+        raise ValueError(f"bounds must be a contiguous float32 (8, NC) tensor on {dev}")
+    rows = cbp.shape[0]
+    if rows % nc or (orig_of.device != dev or orig_of.dtype != torch.int32
+                     or orig_of.shape != (rows,) or not orig_of.is_contiguous()):
+        raise ValueError(f"orig_of must be a contiguous int32 ({rows},) tensor on "
+                         f"{dev}, a whole number of rows a cluster")
+    return nc, rows // nc
+
+
+def flash_sphere_hit_gated(cull, ro: V3, rd: V3, time, inside, tmin):
+    """Closest sphere hit over the clusters of `cull` (`sph_cull_build`),
+    every ray from t = INF. Returns (t, idx) as `flash_sphere_hit`, idx in the
+    scene's numbering: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    n = inside.shape[0]
+    _check_rays(n, time=time, **{f"ro.{k}": c for k, c in zip("xyz", ro)},
+                **{f"rd.{k}": c for k, c in zip("xyz", rd)})
+    if device.kind(inside, "nearest-hit sweep") == "cpu":
+        return flash_sphere_hit_gated_plain(cull, ro, rd, time, inside, tmin)
+    global gated_launches
+    nc, block = _check_cull(cull, inside.device)
+    _check_kernel_args(inside.device, n, SPH_FEATURES, cull[0], [*ro, *rd, time], inside)
+    out = _launch("mrt_flash_sphere_gated", (*cull[0], cull[1], cull[2]),
+                  [*ro, *rd, time], inside, (n, nc, block, ctypes.c_float(tmin)))
+    gated_launches += 1
+    return out
+
+
+def flash_sphere_hit_streamed(cull, ro: V3, rd: V3, time, inside, tmin, t_seed=None):
+    """Closest sphere hit over the clusters of `cull`, for any sphere count,
+    every ray from `t_seed` ((N,) f32; None means INF): t comes back equal to
+    the seed, with index 0, where no sphere is nearer. The CUDA kernel for
+    CUDA tensors, the plain version for CPU tensors."""
+    n = inside.shape[0]
+    _check_rays(n, time=time, **{f"ro.{k}": c for k, c in zip("xyz", ro)},
+                **{f"rd.{k}": c for k, c in zip("xyz", rd)})
+    if t_seed is not None:
+        _check_rays(n, t_seed=t_seed)
+    if device.kind(inside, "nearest-hit sweep") == "cpu":
+        return flash_sphere_hit_streamed_plain(cull, ro, rd, time, inside, tmin, t_seed)
+    global streamed_launches
+    nc, block = _check_cull(cull, inside.device)
+    seed = torch.full_like(time, INF) if t_seed is None else t_seed
+    _check_kernel_args(inside.device, n, SPH_FEATURES, cull[0], [*ro, *rd, time, seed],
+                       inside)
+    out = _launch("mrt_flash_sphere_streamed", (*cull[0], cull[1], cull[2]),
+                  [*ro, *rd, time, seed], inside, (n, nc, block, ctypes.c_float(tmin)))
+    streamed_launches += 1
     return out

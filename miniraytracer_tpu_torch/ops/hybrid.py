@@ -1,29 +1,34 @@
-"""Hybrid step renderer: dense nearest-hit kernels outside, one fused step
-kernel for everything else. Port of `miniraytracer_tpu/ops/hybrid.py`
-(`render_wavefront_hybrid` and what it runs).
+"""Hybrid step renderer: nearest-hit kernels outside, one fused step kernel
+for everything else. Port of `miniraytracer_tpu/ops/hybrid.py`
+(`render_wavefront_hybrid`, `make_workqueue_shader` and what they run).
 
 The fused render (`ops/bounce.py`) covers scenes whose tables stay small: at
-most 64 primitives a type, 24 materials, no image texture. This renderer
+most 64 primitives a type, 24 materials, no image texture. The machinery here
 covers the scenes beyond it: random_spheres (~490 spheres, a material each),
-earth (an image texture), a triangle set of 65..1023. Each wave step, all on
-the device:
+earth (an image texture), book2_final (1006 spheres and 400 boxes), a
+triangle set of 65..1023. Each step, all on the device:
 
-1. the dense sweeps of `ops/flash.py` (kernels of `csrc/flash.cu`) find, for
-   every lane, the nearest hit over the EXTERNAL sets: the sphere set and the
-   triangle set that have more than 64 members;
+1. the sweeps of `ops/flash.py` (kernels of `csrc/flash.cu`) find, for every
+   lane, the nearest hit over the EXTERNAL sets: the sphere set and the
+   triangle set that have more than 64 members (dense up to 511 spheres,
+   clustered beyond); a box set of more than 64 is swept by tensor operations
+   (`intersect.box_ts`), as in the JAX package;
 2. `_external_candidate` assembles the winner's record (normal, material) with
    plain tensor indexing. In ext-material mode (more materials or textures
    than the step kernel's tables hold) it also evaluates the winner's material
    from the scene's full tables;
-3. ONE step kernel (`csrc/hybrid.cu`, `hybrid_step`) runs `bounce.wave_step`
-   with its in-table sweep seeded by that candidate: the remaining primitives,
-   material dispatch, light sampling, merge, regeneration, and the image
-   texel fetch.
+3. ONE step kernel (`csrc/hybrid.cu`) takes that candidate as the seed of its
+   in-table sweep and does the rest. For the pixel-pinned loop of this module
+   (`render_wavefront_hybrid`) it is `hybrid_step`: `bounce.wave_step` with
+   the remaining primitives, material dispatch, light sampling, merge,
+   regeneration, and the image texel fetch. For the work queue
+   (`models/integrator.py`) it is `shade_step`: the same bounce and advance
+   without merge and regeneration, which the queue does globally.
 
 Same estimator as the fused render: the same counter-keyed RNG, merge and
-NaN/clamp policy. `hybrid_step_plain` is the step kernel's plain PyTorch
-version; the wrappers launch the kernels for CUDA tensors and run the plain
-versions for CPU tensors.
+NaN/clamp policy. `hybrid_step_plain` and `shade_step_plain` are the step
+kernels' plain PyTorch versions; the wrappers launch the kernels for CUDA
+tensors and run the plain versions for CPU tensors.
 
 The loop ends when no lane is alive, which the host reads once a step (a
 step changes a dead lane's depth, so skipping the test for a few steps would
@@ -62,8 +67,17 @@ NI = 3
 NE = 5
 NE_MAT = 11
 
-# Number of launches of the step's CUDA kernel (never of the plain version).
+# rows of the work queue's shade step (the JAX package's layout): in
+# ro(3) rd(3) time beta(3) radiance(3) depth_ok alive, out cont p(3) new_rd(3)
+# beta(3) radiance(3)
+SH_RO, SH_RD, SH_TIME, SH_BETA, SH_RAD, SH_DOK, SH_ALIVE = 0, 3, 6, 7, 10, 13, 14
+SH_NF = 15
+SO_CONT, SO_P, SO_RD, SO_BETA, SO_RAD = 0, 1, 4, 7, 10
+SO_NF = 13
+
+# Launches of the two step kernels (never of their plain versions).
 step_launches = 0
+shade_launches = 0
 
 
 def _np(t) -> np.ndarray:
@@ -250,16 +264,14 @@ def pack_scene_hybrid(scene: T.SceneData, plan=None):
 
 
 def hybrid_accel(scene: T.SceneData):
-    """Coefficient tables of the dense sweeps for the external types. A set
-    too large for the dense tier raises: its kernels are not ported, and a
-    dense sweep is never taken in their place."""
-    ext_sph, ext_tri, ext_box = _ext_types(scene)
-    if ext_box:
-        raise NotImplementedError(
-            f"scene {scene.name!r} has {scene.n_boxes} boxes: the JAX package "
-            "sweeps such a set in miniraytracer_tpu.ops.hybrid."
-            "_external_candidate (intersect.box_ts, no Pallas kernel), which "
-            "is not ported yet (ROADMAP.md A9)")
+    """What the sweeps over the external types need, by the JAX package's
+    thresholds: "sph" the dense sphere tables (65..511 spheres), "sph_gate"
+    or "sph_cull" the Morton clusters of `flash.sph_cull_build` (512..4095
+    spheres: the gated sweep; more: the streamed one), "tri" the dense
+    triangle tables (65..1023). An external box set needs no entry. A
+    triangle set too large for the dense tier raises: its kernels are not
+    ported, and a dense sweep is never taken in their place."""
+    ext_sph, ext_tri, _ = _ext_types(scene)
     accel = {}
     if ext_tri:
         if scene.n_tris >= ix.FLASH_CULL_MIN_TRIS:
@@ -267,20 +279,16 @@ def hybrid_accel(scene: T.SceneData):
                 f"scene {scene.name!r} has {scene.n_tris} triangles: the JAX "
                 "package sweeps them with miniraytracer_tpu.ops.flash."
                 "flash_tri_hit_resident / flash_tri_hit_streamed (kernels "
-                "B10/B11), which are not ported yet")
+                "B10/B11, and B9 as their gated form), which are not ported yet")
         accel["tri"] = flash.scene_tri_coefficients(scene)
     if ext_sph:
-        if scene.n_spheres >= ix.FLASH_CULL_MIN_SPHERES:
-            raise NotImplementedError(
-                f"scene {scene.name!r} has {scene.n_spheres} spheres: the JAX "
-                "package sweeps them with miniraytracer_tpu.ops.flash."
-                "flash_sphere_hit_streamed (kernel B12), which is not ported yet")
-        if scene.n_spheres >= ix.FLASH_GATE_MIN_SPHERES:
-            raise NotImplementedError(
-                f"scene {scene.name!r} has {scene.n_spheres} spheres: the JAX "
-                "package sweeps them with miniraytracer_tpu.ops.flash."
-                "flash_sphere_hit_gated (kernel B13), which is not ported yet")
-        accel["sph"] = flash.sphere_coefficients(scene)
+        coeffs = flash.sphere_coefficients(scene)
+        if scene.n_spheres < ix.FLASH_GATE_MIN_SPHERES:
+            accel["sph"] = coeffs
+        elif scene.n_spheres < ix.FLASH_CULL_MIN_SPHERES:
+            accel["sph_gate"] = flash.sph_cull_build(scene, coeffs)
+        else:
+            accel["sph_cull"] = flash.sph_cull_build(scene, coeffs)
     return accel
 
 
@@ -294,6 +302,11 @@ def _const_miss_rows(n, emat, device):
     if emat:
         return rows + (neg1, z, z, z, z, z, neg1)
     return rows + (z,)
+
+
+# hybrid_accel's entry for the sphere set -> the sweep of ops/flash.py over it
+_SPHERE_SWEEPS = {"sph": "flash_sphere_hit", "sph_gate": "flash_sphere_hit_gated",
+                  "sph_cull": "flash_sphere_hit_streamed"}
 
 
 def _external_candidate(scene, accel, rays: ix.Rays, alive, tmin, ptab=None,
@@ -310,7 +323,8 @@ def _external_candidate(scene, accel, rays: ix.Rays, alive, tmin, ptab=None,
     an outside winner is fetched here, not deferred."""
     n = rays.time.shape[0]
     emat = ext_mat_mode(scene)
-    if not accel:
+    ext_box = _ext_types(scene)[2]
+    if not accel and not ext_box:
         return _const_miss_rows(n, emat, rays.time.device)
     nan = float("nan")
     nan3 = V3(*(torch.where(alive, c, nan) for c in rays.ro))
@@ -318,19 +332,31 @@ def _external_candidate(scene, accel, rays: ix.Rays, alive, tmin, ptab=None,
     inf = torch.full_like(rays.time, INF)
     izero = torch.zeros_like(rays.inside)
 
-    sphere_hit = flash.flash_sphere_hit_plain if plain else flash.flash_sphere_hit
-    tri_hit = flash.flash_tri_hit_plain if plain else flash.flash_tri_hit
+    sweep = lambda name: getattr(flash, name + "_plain" if plain else name)
     t_s, i_s = inf, izero
-    if "sph" in accel:
-        t_s, i_s = sphere_hit(accel["sph"], nan3, nand, rays.time, rays.inside, tmin)
+    sph_key = next((k for k in _SPHERE_SWEEPS if k in accel), None)
+    if sph_key:
+        t_s, i_s = sweep(_SPHERE_SWEEPS[sph_key])(
+            accel[sph_key], nan3, nand, rays.time, rays.inside, tmin)
     t_t, i_t = inf, izero
     if "tri" in accel:
-        t_t, i_t = tri_hit(accel["tri"], nan3, nand, rays.inside, tmin)
+        t_t, i_t = sweep("flash_tri_hit")(accel["tri"], nan3, nand, rays.inside, tmin)
 
-    # combine: on a tie the sphere wins, as scene_hit prefers it
-    ext_t = torch.minimum(t_s, t_t)
-    is_s = t_s <= t_t
-    is_t = ~is_s
+    # a big box set: swept by tensor operations on the real rays (a NaN ray
+    # would poison the minimum), dead lanes and misses masked afterwards
+    t_b, i_b = inf, izero
+    if ext_box:
+        t_b, i_b = ix._chunked_min(
+            lambda s, c: ix.box_ts(scene, rays, s, c, tmin, inf),
+            scene.n_boxes, n, rays.time.device)
+        t_b = torch.where(alive & torch.isfinite(t_b), t_b, INF)
+
+    # combine: on a tie sphere before triangle before box, as scene_hit
+    # prefers them
+    ext_t = torch.minimum(torch.minimum(t_s, t_t), t_b)
+    is_s = t_s <= torch.minimum(t_t, t_b)
+    is_t = ~is_s & (t_t <= t_b)
+    is_b = ~is_s & ~is_t
     has = ext_t < INF
     safe_t = torch.where(has, ext_t, 1.0)
     one = torch.ones_like(safe_t)
@@ -338,20 +364,19 @@ def _external_candidate(scene, accel, rays: ix.Rays, alive, tmin, ptab=None,
     nrm = V3(one, zero, zero)
     mat = izero
     uu = vv = zero
-    if "sph" in accel:
-        idx_s = torch.where(is_s & has, i_s, 0)
-        _, n_sph, u_s, v_s, m_sph = ix.sphere_record(scene, rays, safe_t, idx_s)
-        nrm = vwhere(is_s, n_sph, nrm)
-        mat = torch.where(is_s, m_sph, mat)
-        uu = torch.where(is_s, u_s, uu)
-        vv = torch.where(is_s, v_s, vv)
+    records = []
+    if sph_key:
+        records.append((is_s, i_s, ix.sphere_record))
     if "tri" in accel:
-        idx_t = torch.where(is_t & has, i_t, 0)
-        _, n_tri, u_t, v_t, m_tri = ix.tri_record(scene, rays, safe_t, idx_t)
-        nrm = vwhere(is_t, n_tri, nrm)
-        mat = torch.where(is_t, m_tri, mat)
-        uu = torch.where(is_t, u_t, uu)
-        vv = torch.where(is_t, v_t, vv)
+        records.append((is_t, i_t, ix.tri_record))
+    if ext_box:
+        records.append((is_b, i_b, ix.box_record))
+    for mine, idx, record in records:
+        _, n_w, u_w, v_w, m_w = record(scene, rays, safe_t, torch.where(mine & has, idx, 0))
+        nrm = vwhere(mine, n_w, nrm)
+        mat = torch.where(mine, m_w, mat)
+        uu = torch.where(mine, u_w, uu)
+        vv = torch.where(mine, v_w, vv)
 
     nx = torch.where(has, nrm.x, one)
     ny = torch.where(has, nrm.y, 0.0)
@@ -419,6 +444,30 @@ def hybrid_step_plain(cfg: StepConfig, fstate, istate, keys, rays_ct, pix, ext):
 _N_IPARAMS = B._N_IPARAMS + 5
 
 
+def _check_lanes(dev, **lanes):
+    """Each of `lanes` = (tensor, dtype, shape) is contiguous and on `dev`."""
+    for name, (t, dtype, shape) in lanes.items():
+        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{name} must be a contiguous {dtype} tensor of shape {shape} "
+                f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _check_scene_tables(dev, tables, images):
+    for t in tables:
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"scene tables must be contiguous float32 on {dev}")
+    if tables[8].shape != (6, 256) or tables[7].shape != (21,):
+        raise ValueError("bad Perlin or camera table shape")
+    if (images.device != dev or images.dtype != torch.uint32
+            or images.dim() != 3 or not images.is_contiguous()):
+        raise ValueError(f"images must be a contiguous uint32 (I, IH, IW) "
+                         f"tensor on {dev}")
+    if images.numel() >= 2 ** 31:
+        raise ValueError("too many texels for int32 indexing")
+
+
 def hybrid_step(cfg: StepConfig, fstate, istate, keys, rays_ct, pix, ext):
     """One hybrid wave step on the state's device: the CUDA kernel for CUDA
     tensors, `hybrid_step_plain` for CPU tensors. Arguments and results as
@@ -431,29 +480,13 @@ def hybrid_step(cfg: StepConfig, fstate, istate, keys, rays_ct, pix, ext):
     meta, tables, images = cfg.meta, cfg.tables, cfg.images
     dev, n = fstate.device, fstate.shape[1]
     ne = NE_MAT if meta.get("ext_mat") else NE
-    lanes = dict(fstate=(fstate, torch.float32, (NF, n)),
-                 istate=(istate, torch.int32, (NI, n)),
-                 keys=(keys, torch.int32, (n,)),
-                 rays_ct=(rays_ct, torch.int32, (n,)),
-                 pix=(pix, torch.int32, (n,)),
+    _check_lanes(dev, fstate=(fstate, torch.float32, (NF, n)),
+                 istate=(istate, torch.int32, (NI, n)), keys=(keys, torch.int32, (n,)),
+                 rays_ct=(rays_ct, torch.int32, (n,)), pix=(pix, torch.int32, (n,)),
                  ext=(ext, torch.float32, (ne, n)))
-    for name, (t, dtype, shape) in lanes.items():
-        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(
-                f"{name} must be a contiguous {dtype} tensor of shape {shape} "
-                f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    for t in tables:
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"scene tables must be contiguous float32 on {dev}")
-    if tables[8].shape != (6, 256) or tables[7].shape != (21,):
-        raise ValueError("bad Perlin or camera table shape")
-    if (images.device != dev or images.dtype != torch.uint32
-            or images.dim() != 3 or not images.is_contiguous()):
-        raise ValueError(f"images must be a contiguous uint32 (I, IH, IW) "
-                         f"tensor on {dev}")
-    if NF * n >= 2 ** 31 - 128 or images.numel() >= 2 ** 31:
-        raise ValueError("too many lanes or texels for int32 indexing")
+    _check_scene_tables(dev, tables, images)
+    if NF * n >= 2 ** 31 - 128:
+        raise ValueError("too many lanes for int32 indexing")
     ip = B.kernel_params(meta, n, cfg.sample_lo, cfg.n_samples,
                          width=cfg.width, height=cfg.height,
                          max_bounces=cfg.max_bounces, spp_sq=cfg.sq)
@@ -474,6 +507,111 @@ def hybrid_step(cfg: StepConfig, fstate, istate, keys, rays_ct, pix, ext):
         raise RuntimeError(f"mrt_hybrid_step failed: {kernels.error_string(lib, rc)}")
     step_launches += 1
     return tuple(outs)
+
+
+# ---------------------------------------------------------------------------
+# The work queue's shade step: plain PyTorch version and kernel wrapper
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShadeConfig:
+    """The packed scene (`pack_scene_hybrid`) and the image atlas (u32
+    texels, (I, IH, IW)): what a shade step needs beside the lanes."""
+
+    meta: dict
+    tables: tuple
+    images: torch.Tensor
+
+
+def shade_step_plain(cfg: ShadeConfig, fstate, inside, keys_b, ext):
+    """Plain PyTorch version of the shade kernel, on any device: one
+    `bounce.shade_advance` with the candidate rows `ext`. `fstate` is the
+    (SH_NF, N) f32 input rows, `inside` (N,) int32, `keys_b` the depth-folded
+    u32 key bits in int32. Returns ((SO_NF, N) f32 output rows, new_inside (N,) int32); p, new_rd
+    and new_inside are zero where cont is 0."""
+    meta, tables = cfg.meta, cfg.tables
+    v3 = lambda r: V3(fstate[r], fstate[r + 1], fstate[r + 2])
+    texels = B.atlas_texels(cfg.images) if meta["image"] else None
+    b, cont, beta, radiance = B.shade_advance(
+        meta, tables[:7], tables[8], v3(SH_RO), v3(SH_RD), fstate[SH_TIME], inside,
+        keys_b.to(torch.int64) & 0xFFFFFFFF, fstate[SH_DOK] > 0.0, fstate[SH_ALIVE] > 0.0,
+        v3(SH_BETA), v3(SH_RAD), ext=tuple(ext), texels=texels)
+    zero = torch.zeros_like(b.safe_t)
+    zero3 = V3(zero, zero, zero)
+    f_out = torch.stack([cont.to(torch.float32), *vwhere(cont, b.p, zero3),
+                         *vwhere(cont, b.new_rd, zero3), *beta, *radiance])
+    return f_out, torch.where(cont, b.new_inside, 0)
+
+
+def shade_step(cfg: ShadeConfig, fstate, inside, keys_b, ext):
+    """One shade step on the lanes' device: the CUDA kernel for CUDA tensors,
+    `shade_step_plain` for CPU tensors. Arguments and results as
+    `shade_step_plain`; nothing is updated in place."""
+    if device.kind(fstate, "shade step") == "cpu":
+        return shade_step_plain(cfg, fstate, inside, keys_b, ext)
+    from miniraytracer_tpu_torch.utils import kernels
+
+    global shade_launches
+    meta, tables, images = cfg.meta, cfg.tables, cfg.images
+    dev, n = fstate.device, fstate.shape[1]
+    ne = NE_MAT if meta.get("ext_mat") else NE
+    _check_lanes(dev, fstate=(fstate, torch.float32, (SH_NF, n)),
+                 inside=(inside, torch.int32, (n,)), keys_b=(keys_b, torch.int32, (n,)),
+                 ext=(ext, torch.float32, (ne, n)))
+    _check_scene_tables(dev, tables, images)
+    if SH_NF * n >= 2 ** 31 - 128:
+        raise ValueError("too many lanes for int32 indexing")
+    ip = B.kernel_params(meta, n, 0, 0, width=1, height=1, max_bounces=0, spp_sq=1)
+    ip += [int(bool(meta.get("ext_mat"))), int(meta["image"]), *images.shape]
+    f_out = torch.empty((SO_NF, n), dtype=torch.float32, device=dev)
+    i_out = torch.empty_like(inside)
+    lib = kernels.load("hybrid")
+    fn = lib.mrt_shade_step
+    fn.argtypes = ([ctypes.c_void_p] * 16
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    ptrs = [*tables, images, fstate, inside, keys_b, ext, f_out, i_out]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*[t.data_ptr() for t in ptrs], (ctypes.c_int * _N_IPARAMS)(*ip), stream)
+    if rc != 0:
+        raise RuntimeError(f"mrt_shade_step failed: {kernels.error_string(lib, rc)}")
+    shade_launches += 1
+    return f_out, i_out
+
+
+def make_workqueue_shader(scene: T.SceneData, plain=False):
+    """The work queue's shading phase on the scene's device:
+
+        shader(rays, keys_b, depth_ok, alive, beta, radiance)
+          -> (p V3, new_rd V3, new_inside, cont, beta' V3, radiance' V3)
+
+    with `keys_b` the depth-folded u32 keys (in int64, as `ops/rng.py` holds
+    them). The sweeps of `ops/flash.py` intersect the external types, the
+    shade step does the in-table sweep and the shading: kernels on a CUDA
+    scene, their plain versions on a CPU scene or with `plain`."""
+    if not can_hybrid(scene):
+        raise ValueError(f"scene {scene.name!r} is outside the hybrid class "
+                         "(see can_hybrid)")
+    meta, tables = pack_scene_hybrid(scene)
+    cfg = ShadeConfig(meta=meta, tables=tuple(tables), images=scene.images)
+    accel = hybrid_accel(scene)
+    ptab = B.perlin_table(scene) if scene.has_perlin else None
+    step = shade_step_plain if plain else shade_step
+
+    def shader(rays: ix.Rays, keys_b, depth_ok, alive, beta: V3, radiance: V3):
+        ext = torch.stack(_external_candidate(scene, accel, rays, alive, B.TMIN,
+                                              ptab, plain))
+        fstate = torch.stack([*rays.ro, *rays.rd, rays.time, *beta, *radiance,
+                              depth_ok.to(torch.float32), alive.to(torch.float32)])
+        kb = torch.where(keys_b >= 2 ** 31, keys_b - 2 ** 32, keys_b).to(torch.int32)
+        f, new_inside = step(cfg, fstate, rays.inside, kb, ext)
+        v3 = lambda r: V3(f[r], f[r + 1], f[r + 2])
+        return (v3(SO_P), v3(SO_RD), new_inside, f[SO_CONT] > 0.0, v3(SO_BETA),
+                v3(SO_RAD))
+
+    return shader
 
 
 # ---------------------------------------------------------------------------

@@ -45,6 +45,14 @@ def make_camera(pos, lookat, up, vfov, aspect, aperture, focus_dist, t0, t1) -> 
     )
 
 
+def _roty_fwd(deg):
+    """Object -> world rotation of rotate_y (scene_object.cpp:85-92):
+    x' = c*x + s*z, z' = c*z - s*x."""
+    r = math.radians(deg)
+    c, s = math.cos(r), math.sin(r)
+    return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], _F)
+
+
 class SceneBuilder:
     def __init__(self):
         self.spheres = []  # (c0, c1, t0, t1, radius, moving, mat)

@@ -27,7 +27,8 @@ moving spheres) and fed to both packages:
   jitted XLA wavefront and `golden_renders.npz`, statistically (ray drift
   < 2%, channel means to 5e-3 relative), as tests/test_hybrid.py compares
   its own two renderers;
-- `pick_renderer` against the JAX rule on all nine scene classes.
+- `pick_renderer` against the JAX rule on all nine scene classes, and which
+  primitive counts route where or raise.
 """
 
 import dataclasses
@@ -291,11 +292,12 @@ def test_render_auto_routes_random_spheres_to_hybrid():
     assert torch.isfinite(frame).all() and stats["rays"] >= 64
     # on the CPU the plain versions ran: no kernel launch was counted
     assert steps == (thybrid.step_launches, tflash.sphere_launches)
-    # earth is in the hybrid class, but the rule sends image scenes elsewhere
+    # earth is in the hybrid class, but the rule sends image scenes to the
+    # work queue, whose shade step is the same machinery
     earth = tscenes.earth(1.0)
     assert thybrid.can_hybrid(earth) and thybrid.prefer_hybrid(earth)
-    with pytest.raises(NotImplementedError, match="B5"):
-        mrt.render(earth, 8, 8, 1, device="cpu")
+    frame, stats = mrt.render(earth, 8, 8, 1, device="cpu")
+    assert stats["renderer"] == "workqueue" and torch.isfinite(frame).all()
 
 
 def test_entry_points_need_a_card_unless_told():
@@ -311,9 +313,13 @@ NINE = jscenes.SCENE_NAMES
 @pytest.mark.parametrize("name", NINE)
 def test_pick_renderer_follows_the_jax_rule(monkeypatch, name):
     """On all nine scene classes, with the JAX rule evaluated as on its
-    accelerator. The three scenes the port cannot build are carried over
-    from the JAX package (`from_numpy`); triangles and book2_final lack
-    their mesh files here in both packages alike."""
+    accelerator. The two scenes the port cannot build are carried over from
+    the JAX package (`from_numpy`); triangles lacks its mesh files here in
+    both packages alike. `render` then raises for the renderers that are not
+    ported, naming them: the work queue with its shading in tensor
+    operations (random_spheres_2), and the plain wavefront (no reference
+    scene lands there on the accelerator; a small scene with a material a
+    sphere does)."""
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     js = getattr(jscenes, name)(1.0)
     want = jinteg.pick_renderer(js)
@@ -321,14 +327,16 @@ def test_pick_renderer_follows_the_jax_rule(monkeypatch, name):
           else ttypes.from_numpy(_leaves(js)))
     assert thybrid.can_hybrid(ts) == jhybrid.can_hybrid(js)
     assert thybrid.prefer_hybrid(ts) == jhybrid.prefer_hybrid(js)
-    if want in ("fused", "hybrid"):
-        assert tinteg.pick_renderer(ts) == want
-    else:
-        with pytest.raises(NotImplementedError, match=f"render_{want}"):
-            tinteg.pick_renderer(ts)
+    assert tinteg.pick_renderer(ts) == want
+    if name != "triangles":  # without its meshes a Cornell box: fused
+        assert want == {"random_spheres": "hybrid", "random_spheres_2": "workqueue",
+                        "earth": "workqueue", "book2_final": "workqueue"}.get(name, "fused")
+    if name == "random_spheres_2":
+        with pytest.raises(NotImplementedError, match="_shade_and_advance.*A5"):
+            mrt.render(ts, 4, 4, 1, device="cpu")
 
 
-def _many(n_sph=0, n_tri=0, n_box=0, own_materials=False):
+def _many(n_sph=0, n_tri=0, n_box=0, own_materials=False, image=False):
     b = mrt.SceneBuilder()
     b.name = "many"
     b.set_camera([0, 3, 12], [0, 1, 0], [0, 1, 0], 40.0, 1.0, aperture=0.0,
@@ -345,21 +353,38 @@ def _many(n_sph=0, n_tri=0, n_box=0, own_materials=False):
     for _ in range(n_box):
         p = rs.uniform(-5, 5, 3)
         b.box(p.tolist(), (p + 0.1).tolist(), m)
+    if image:
+        b.sphere([0, 1, 0], 1.0, b.lambertian(b.tex_image(
+            rs.uniform(0, 1, (8, 16, 3)).astype(np.float32))))
     return b.build()
 
 
 @pytest.mark.parametrize("counts,kernel", [
-    (dict(n_sph=600), "B13"), (dict(n_sph=1500, n_tri=100), "B13"),
-    (dict(n_tri=1100), "B10"), (dict(n_sph=70, n_box=70), "box_ts"),
-    (dict(n_sph=4200), "B5"), (dict(n_sph=30, own_materials=True), "render_wavefront")])
+    (dict(n_tri=1100), "B10"), (dict(n_tri=1100, n_sph=600), "B11"),
+    (dict(n_tri=2100), "B9"),
+    (dict(n_sph=70, own_materials=True, image=True), "_shade_and_advance"),
+    (dict(n_sph=30, own_materials=True), "render_wavefront")])
 def test_unported_tiers_raise_and_name_their_kernel(counts, kernel):
     scene = _many(**counts)
     with pytest.raises(NotImplementedError, match=kernel):
         mrt.render(scene, 4, 4, 1, device="cpu")
-    if kernel == "B13":  # and the streamed tier, called directly
-        big = dataclasses.replace(scene, **{
-            k: getattr(scene, k).repeat(*([8] + [1] * (getattr(scene, k).dim() - 1)))
-            for k in ("sph_c0", "sph_c1", "sph_t0", "sph_t1", "sph_radius",
-                      "sph_moving", "sph_mat", "sph_active")})
-        with pytest.raises(NotImplementedError, match="B12"):
-            thybrid.hybrid_accel(big)
+
+
+@pytest.mark.parametrize("counts,renderer,accel", [
+    (dict(n_sph=600), "hybrid", {"sph_gate"}),
+    (dict(n_sph=1500, n_tri=100), "hybrid", {"sph_gate", "tri"}),
+    (dict(n_sph=70, n_box=70), "hybrid", {"sph"}),
+    (dict(n_sph=2100), "workqueue", {"sph_gate"}),
+    (dict(n_sph=4200), "workqueue", {"sph_cull"}),
+    (dict(n_sph=70, n_box=400), "workqueue", {"sph"})])
+def test_ported_tiers_route_and_render(counts, renderer, accel):
+    """The gated (B13) and streamed (B12) sphere tiers and an outside box
+    set, which raised before they were ported: `hybrid_accel` builds their
+    entries by the JAX package's thresholds and `render` draws the scene."""
+    scene = _many(**counts)
+    assert set(thybrid.hybrid_accel(scene)) == accel
+    assert thybrid._ext_types(scene)[2] == (counts.get("n_box", 0) > 64)
+    assert mrt.pick_renderer(scene) == renderer
+    frame, stats = mrt.render(scene, 4, 4, 1, max_bounces=3, device="cpu")
+    assert stats["renderer"] == renderer and torch.isfinite(frame).all()
+    assert stats["rays"] >= 16

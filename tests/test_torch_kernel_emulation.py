@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from miniraytracer_tpu_torch.models import integrator as tinteg
 from miniraytracer_tpu_torch.models import scenes as tscenes
 from miniraytracer_tpu_torch.ops import bounce as tbounce
 from miniraytracer_tpu_torch.ops import bounce_ad as tad
@@ -293,3 +294,151 @@ def test_emulated_hybrid_render_matches_plain(emulated, name):
     assert torch.equal(ck, cp) and torch.equal(rk, rp)
     frame = lambda a, c: a / c.clamp_min(1)[:, None].float()
     torch.testing.assert_close(frame(ak, ck), frame(ap, cp), rtol=0, atol=1e-5)
+
+
+def _clustered_case(name):
+    """(scene, rays) for the clustered sphere sweeps: book2_final's 1006
+    spheres (a moving one, glass, a cloud of 1000) or a probe of 701; rays
+    from around the scene towards its spheres, a third inside a medium, the
+    last 9 NaN."""
+    n = 400
+    ro, rd, time, inside = _sweep_rays(n, 21)
+    if name == "book2_final":
+        scene = tscenes.book2_final(1.0)
+        rs = np.random.default_rng(4)
+        o = rs.uniform(-300, 600, (n, 3)).astype(np.float32)
+        aim = scene.sph_c0.numpy()[rs.integers(0, scene.n_spheres, n)]
+        d = aim + rs.normal(0, 6, (n, 3)).astype(np.float32) - o
+        d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+        o[-9:], d[-9:] = np.nan, np.nan
+        v3 = lambda a: V3(*(torch.as_tensor(np.ascontiguousarray(a[:, k])) for k in range(3)))
+        ro, rd = v3(o), v3(d)
+    else:
+        scene = tscenes.hybrid_probe(1.0, 700, 0)
+    return scene, (ro, rd, time, inside)
+
+
+@pytest.mark.parametrize("kind", ["gated", "streamed"])
+@pytest.mark.parametrize("name", ["book2_final", "hybrid_probe"])
+def test_emulated_clustered_sphere_kernels_match_plain(emulated, kind, name):
+    """B13 and B12 (`flash.cu`) against their plain versions and against the
+    dense sweep: t and the index EQUAL on every ray, NaN lanes included (they
+    come back (INF, 0), or their seed). The tie rule: of two table rows with
+    the same coefficients the FIRST IN MORTON ORDER wins, also where the
+    other has the lower scene index. B12 with a finite seed on half of the
+    rays returns the seed, with index 0, where no sphere is nearer."""
+    scene, (ro, rd, time, inside) = _clustered_case(name)
+    coeffs = tflash.sphere_coefficients(scene)
+    (cbp, ccp), bounds, orig_of = tflash.sph_cull_build(scene, coeffs)
+    rays = (ro, rd, time, inside, tbounce.TMIN)
+    t_d, i_d = tflash.flash_sphere_hit_plain(coeffs, *rays)
+    if kind == "gated":
+        kernel, plain, counter = (tflash.flash_sphere_hit_gated,
+                                  tflash.flash_sphere_hit_gated_plain, "gated_launches")
+    else:
+        kernel, plain, counter = (tflash.flash_sphere_hit_streamed,
+                                  tflash.flash_sphere_hit_streamed_plain, "streamed_launches")
+    cull = ((cbp, ccp), bounds, orig_of)
+    before = getattr(tflash, counter)
+    tk, ik = kernel(cull, *rays)
+    assert getattr(tflash, counter) == before + 1
+    tp, ip = plain(cull, *rays)
+    assert torch.equal(tk, tp) and torch.equal(ik, ip)
+    assert ik.dtype == torch.int32 and tk.dtype == torch.float32
+    hit = tp < 3e38
+    assert hit.sum() > 100 and not hit[-9:].any() and (ik[-9:] == 0).all()
+    assert (inside[hit] > 0).any()
+    # the per-ray gate against the dense sweep: equal (no grazing ray here)
+    assert torch.equal(tp, t_d) and torch.equal(ip[hit], i_d[hit])
+
+    # a twin: a row later in the same cluster, of a LOWER scene index
+    block = cbp.shape[0] // bounds.shape[1]
+    pos_of = torch.empty_like(orig_of)
+    pos_of[orig_of.long()[:scene.n_spheres]] = torch.arange(scene.n_spheres, dtype=torch.int32)
+    pair = None
+    for first in torch.unique(pos_of[ip[hit].long()]).tolist():
+        end = min((first // block + 1) * block, scene.n_spheres)
+        later = [q for q in range(first + 1, end) if orig_of[q] < orig_of[first]]
+        if later:
+            pair = (first, later[0])
+            break
+    assert pair is not None
+    first, second = pair
+    cb2, cc2 = cbp.clone(), ccp.clone()
+    cb2[second], cc2[second] = cbp[first], ccp[first]
+    tk2, ik2 = kernel(((cb2, cc2), bounds, orig_of), *rays)
+    tp2, ip2 = plain(((cb2, cc2), bounds, orig_of), *rays)
+    assert torch.equal(tk2, tp2) and torch.equal(ik2, ip2)
+    on_it = ip == orig_of[first]
+    assert on_it.any() and (ik2[on_it] == orig_of[first]).all()
+    assert not (ik2 == orig_of[second]).any()
+
+    if kind == "streamed":
+        rs = np.random.default_rng(8)
+        seed = torch.where(torch.as_tensor(rs.random(tp.shape[0]) < 0.5),
+                           torch.as_tensor(rs.uniform(0.3, 1.2, tp.shape[0]).astype(np.float32))
+                           * tp.clamp_max(1e4), torch.full_like(tp, 3.0e38))
+        tks, iks = kernel(cull, *rays, seed)
+        tps, ips = plain(cull, *rays, seed)
+        assert torch.equal(tks, tps) and torch.equal(iks, ips)
+        nearer = tp < seed
+        assert nearer.any() and (~nearer & hit).any()
+        assert torch.equal(tks[nearer], tp[nearer]) and torch.equal(iks[nearer], ip[nearer])
+        assert torch.equal(tks[~nearer], seed[~nearer]) and (iks[~nearer] == 0).all()
+
+
+def _queue_scene(name):
+    if name == "hybrid_probe":
+        return tscenes.hybrid_probe(1.0, 80, 100)
+    return getattr(tscenes, name)(1.0)
+
+
+@pytest.mark.parametrize("name", ["earth", "book2_final", "hybrid_probe", "random_spheres"])
+def test_emulated_workqueue_render_matches_plain(emulated, monkeypatch, name):
+    """B5 (`hybrid.cu`) in its modes (image texels and no outside set;
+    outside spheres through B13 and boxes, an image, volumes; 5 candidate
+    rows; 11 rows), fed by the emulated sweeps: every step of a whole
+    work-queue render against the plain shade step on the same lanes (`cont`
+    and `new_inside` equal, floats within 1e-6 of the row's scale), then the
+    whole render through the kernels against the plain one: equal claims and
+    ray counts, frames within 3e-5 on 99% of the pixels (libm's sin, cos, log
+    and exp against PyTorch's, carried through up to 6 bounces) and within
+    2e-3 on all (book2's thin fog turns the rounding of one log into 1e-3 of a
+    hit point). 324 lanes, with lanes inside glass beyond the first 128."""
+    scene = _queue_scene(name)
+    w = h = 18
+    sq, bounces = 2, 6
+    kernel_step = thybrid.shade_step
+    seen = {"steps": 0, "inside": 0}
+
+    def both(cfg, fstate, inside, keys_b, ext):
+        fk, ik = kernel_step(cfg, fstate, inside, keys_b, ext)
+        fp, ip = thybrid.shade_step_plain(cfg, fstate, inside, keys_b, ext)
+        assert torch.equal(ik, ip) and torch.equal(fk[thybrid.SO_CONT], fp[thybrid.SO_CONT])
+        scale = fp.abs().amax(dim=1, keepdim=True).clamp_min(1.0)
+        assert ((fk - fp).abs() <= 1e-6 * scale).all(), seen["steps"]
+        seen["steps"] += 1
+        seen["inside"] += int((ip[128:] > 0).sum())
+        return fp, ip
+
+    kw = dict(width=w, height=h, max_bounces=bounces, spp_sq=sq)
+    launches = thybrid.shade_launches
+    monkeypatch.setattr(thybrid, "shade_step", both)
+    stats_c = {}
+    tinteg.render_workqueue_pixels(scene, w * h, w * h, sq * sq, 1000.0, stats=stats_c, **kw)
+    assert thybrid.shade_launches == launches + seen["steps"] == launches + stats_c["steps"]
+    assert stats_c["steps"] > bounces
+    if name != "earth":
+        assert seen["inside"] > 0
+
+    monkeypatch.setattr(thybrid, "shade_step", kernel_step)
+    stats_k, stats_p = {}, {}
+    ak, ck, rk = tinteg.render_workqueue_pixels(scene, w * h, 200, sq * sq, 1000.0,
+                                                stats=stats_k, **kw)
+    ap, cp, rp = tinteg.render_workqueue_pixels(scene, w * h, 200, sq * sq, 1000.0,
+                                                stats=stats_p, plain=True, **kw)
+    assert stats_k == stats_p and int(rk) == int(rp)
+    assert torch.equal(ck, cp) and int(ck.sum()) == w * h * sq * sq
+    frame = lambda a, c: a / c.clamp_min(1)[:, None]
+    err = (frame(ak, ck) - frame(ap, cp)).abs().amax(dim=1)
+    assert float((err <= 3e-5).float().mean()) >= 0.99 and float(err.max()) <= 2e-3

@@ -30,8 +30,9 @@ from miniraytracer_tpu_torch.scene import types as ttypes
 torch.set_num_threads(1)
 
 FUSED = ["two_spheres", "perlin_spheres", "cornell_box", "cornell_smoke"]
-# the scenes the port builds: the fused class and the hybrid renderer's two
-PORTED = FUSED + ["random_spheres", "earth"]
+# the scenes the port builds: the fused class, the hybrid renderer's
+# random_spheres, the work queue's earth and book2_final
+PORTED = FUSED + ["random_spheres", "earth", "book2_final"]
 PORT = pathlib.Path(__file__).resolve().parent.parent / "miniraytracer_tpu_torch"
 
 
@@ -178,3 +179,20 @@ def test_port_never_imports_jax():
     assert len(files) > 10
     offenders = [str(p) for p in files if pat.search(p.read_text())]
     assert not offenders, offenders
+
+
+def test_book2_final_is_the_scene_of_the_reference():
+    """400 boxes, 1006 spheres of which one moves, two volumes, an image, a
+    Perlin texture and one rect light, on the scene generator's fixed stream
+    (the cloud's draws land z, y, x)."""
+    sc = tscenes.book2_final(1.0)
+    assert (sc.n_boxes, sc.n_spheres, sc.n_volumes, sc.n_rects) == (400, 1006, 2, 1)
+    assert int((sc.sph_moving > 0).sum()) == 1 and sc.has_image and sc.has_perlin
+    assert len(sc.lights) == 1 and not sc.use_sky
+    js = jscenes.book2_final(1.0)
+    np.testing.assert_array_equal(sc.sph_c0.numpy()[6:], np.asarray(js.sph_c0)[6:])
+    cloud = sc.sph_c0.numpy()[6:1006]
+    assert cloud.shape == (1000, 3) and (sc.sph_radius.numpy()[6:1006] == 10).all()
+    # inside the rotated, moved cube of side 165
+    assert cloud[:, 1].min() >= 270 and cloud[:, 1].max() <= 270 + 165
+    assert tscenes.select_scene(tscenes.SCENE_BOOK2_FINAL, 1.0).name == "book2_final"

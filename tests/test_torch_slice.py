@@ -43,10 +43,13 @@ def test_pick_renderer_raises_outside_fused_class():
     b.add_light(b.sphere([0, 3, 0], 0.5, b.diffuse_light(b.tex_const([4, 4, 4]))))
     scene = b.build()
     assert not bounce.can_fuse(scene) and not hybrid.can_hybrid(scene)
-    with pytest.raises(NotImplementedError, match="render_workqueue"):
-        mrt.pick_renderer(scene)
-    with pytest.raises(NotImplementedError):
+    # the rule's answer is the work queue, with its shading in tensor
+    # operations: that half of it is not ported, and `render` says so
+    assert mrt.pick_renderer(scene) == "workqueue"
+    with pytest.raises(NotImplementedError, match="_shade_and_advance"):
         mrt.render(scene, 8, 8, 1, device="cpu")
+    with pytest.raises(ValueError, match="hybrid class"):
+        mrt.render_workqueue(scene, 8, 8, 1, fused_shade=True)
     pix = torch.arange(64, dtype=torch.int32)
     with pytest.raises(ValueError, match="fused class"):
         bounce.render_wavefront_fused_pixels(
@@ -138,6 +141,28 @@ def test_hybrid_render_on_cuda_launches_kernels_and_matches_plain(name):
     p = hybrid.render_wavefront_hybrid_pixels(scene, pix, 0, 4, 1000.0, plain=True, **kw)
     assert hybrid.step_launches == before[0] + steps  # the plain run launched nothing
     chip_smoke.compare(name, k, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["earth", "book2_final", "hybrid_probe", "random_spheres",
+                                  "probe_4200"])
+def test_workqueue_render_on_cuda_launches_kernels_and_matches_plain(name):
+    """The work queue on the card: the shade step launches once a queue step,
+    book2_final's sphere set goes through the gated clustered sweep and a
+    probe's 4200 spheres through the streamed one, and the frame agrees with the plain versions' at `chip_smoke.compare_queue`'s
+    tolerances (equal claims, steps and ray counts)."""
+    _need_cuda()
+    import chip_smoke
+    from miniraytracer_tpu_torch.models import integrator
+
+    scene = (mrt.scenes.hybrid_probe(1.0, 80, 200) if name == "hybrid_probe"
+             else mrt.scenes.hybrid_probe(1.0, 4200, 0) if name == "probe_4200"
+             else getattr(mrt.scenes, name)(1.0)).to("cuda")
+    before = hybrid.shade_launches, flash.gated_launches, flash.streamed_launches
+    steps = chip_smoke.compare_queue(name, integrator, scene, 32, 32, 2, 8, 300)
+    assert hybrid.shade_launches == before[0] + steps
+    assert flash.gated_launches == before[1] + (steps if name == "book2_final" else 0)
+    assert flash.streamed_launches == before[2] + (steps if name == "probe_4200" else 0)
 
 
 # ---------------------------------------------------------------------------
