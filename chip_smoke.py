@@ -27,7 +27,14 @@ the four ported paths on the card:
   four modes, whole queue renders against the plain ones and book2_final
   against the reference renderer's frame, then earth and book2_final (1006
   spheres, 400 boxes) at 500x500, 64 spp, 32 bounces through `render`, and a
-  procedural scene with 5000 spheres for the streamed sweep.
+  procedural scene with 5000 spheres for the streamed sweep;
+- the renderers whose shading is tensor operations (the work queue without
+  its shade kernel, the plain wavefront): kernel B6 (`noise.cu`, Perlin
+  turbulence) against its plain version on the points of a real queue step
+  and on uniform points, whole renders through B6 and the sweeps against the
+  plain ones, random_spheres_2 against the reference renderer's frame, then
+  random_spheres_2 (487 spheres, Perlin, an earth map) at 500x500, 64 spp, 32
+  bounces through `render`.
 
 Each main path is driven with the kernels' launch counts set to 0 just before
 and read just after. Every phase raises on failure, so the exit code is
@@ -157,12 +164,12 @@ def main() -> None:
           f"device {torch.cuda.get_device_name(0)}")
 
     import miniraytracer_tpu_torch as mrt
-    from miniraytracer_tpu_torch.ops import bounce, bounce_ad, flash, hybrid
+    from miniraytracer_tpu_torch.ops import bounce, bounce_ad, flash, hybrid, noise
     from miniraytracer_tpu_torch.utils import kernels
 
     # 2. build the kernels from the sources in this checkout
     t0 = time.perf_counter()
-    names = ("bounce", "bounce_ad", "flash", "hybrid")
+    names = ("bounce", "bounce_ad", "flash", "hybrid", "noise")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(kernels.build, names))  # one nvcc each, side by side
     print(f"phase 2: built {', '.join(f'csrc/{n}.cu' for n in names)} in "
@@ -266,6 +273,7 @@ def main() -> None:
     kernel_rows += hybrid_phases(mrt, bounce, flash, hybrid, dev, card_line, refs)
     kernel_rows += queue_phases(mrt, bounce, flash, hybrid, dev, card_line, refs,
                                 kernel_rows[-1])
+    kernel_rows += eager_phases(mrt, flash, hybrid, noise, dev, card_line, refs, kernel_rows)
 
     print(card_line)
     print(json.dumps({"kernels": kernel_rows}))
@@ -1287,6 +1295,211 @@ def queue_phases(mrt, bounce, flash, hybrid, dev, card_line, refs, hybrid_row):
          "replaces": "miniraytracer_tpu/ops/flash.py:1343", "launches": c_book2["b13"],
          "max_abs_err": clustered_err["book2_final"][0], **sweep_rows["book2_final"], **common},
     ]
+
+
+# ---------------------------------------------------------------------------
+# The renderers whose shading is tensor operations: kernel B6 (noise.cu)
+# beside the sweeps B8, B13 and B12
+# ---------------------------------------------------------------------------
+
+# fp32 instructions of one point of B6, counted from physics.cuh::turbulence
+# (--fmad=false, common subexpressions taken once): per octave the lattice of
+# three coordinates (floor, fraction, hermite weight: 6 each, 18), the nine
+# distinct weights 1-h and offsets fr-1 (9), 8 corners of a 3-term dot (5) and
+# the weighted add (3, with ax*ay shared by two corners: 8.5), 68, and the
+# octave's sum, weight and scaling (6): ~101 an octave, 7 octaves and the
+# final |.|: ~710. The table indexing (integer) is not counted.
+FP32_OPS_PER_TURB_POINT = 710
+
+
+def turbulence_points(integrator, noise, scene, size, step):
+    """The points (scaled hit points of every lane) that the work queue hands
+    to B6 at queue step `step` of a size x size render with the default lanes
+    (1 sample, the bounce cap at `step`: the steps up to it are those of any
+    longer render). Returns (tables, points)."""
+    calls = []
+    real = noise.flash_turbulence
+
+    def record(ptab, p):
+        calls.append((ptab, p))
+        return real(ptab, p)
+
+    noise.flash_turbulence = record
+    try:
+        integrator.render_workqueue_pixels(
+            scene, size * size, integrator.wq_auto_lanes(scene, size * size), 1, 1000.0,
+            width=size, height=size, max_bounces=step, spp_sq=1, fused_shade=False)
+    finally:
+        noise.flash_turbulence = real
+    return calls[step]
+
+
+def compare_eager_queue(name, integrator, flash, noise, scene, size, sq, bounces, lanes):
+    """A whole work-queue render with its shading in tensor operations through
+    the kernels against their plain versions. B8, B13, B12 and B6 equal their
+    plain versions to the bit, so steps, claims, sample counts and rays must
+    be EQUAL and every pixel within 1e-6*(1+|plain|) (the merge adds with
+    float atomics, in another order on every run). Each kernel of the scene
+    launches once a step."""
+    kw = dict(width=size, height=size, max_bounces=bounces, spp_sq=sq, fused_shade=False)
+    counters = ("sphere_launches", "gated_launches", "streamed_launches")
+    before = [getattr(flash, c) for c in counters] + [noise.launches]
+    sk, sp = {}, {}
+    ak, ck, rk = integrator.render_workqueue_pixels(scene, size * size, lanes, sq * sq, 1000.0,
+                                                    stats=sk, **kw)
+    launched = [getattr(flash, c) for c in counters] + [noise.launches]
+    ap, cp, rp = integrator.render_workqueue_pixels(scene, size * size, lanes, sq * sq, 1000.0,
+                                                    stats=sp, plain=True, **kw)
+    fk, fp = ak / ck.clamp_min(1)[:, None], ap / cp.clamp_min(1)[:, None]
+    err = (fk - fp).abs()
+    worst = float((err / (1 + fp.abs())).max())
+    steps = [n - b for n, b in zip(launched, before)]
+    print(f"  {name}: steps {sk['steps']} (plain {sp['steps']}), claims {sk['claimed']} "
+          f"({sp['claimed']}), rays {int(rk)} ({int(rp)}); launches a step B8/B13/B12/B6 "
+          f"{[n / sk['steps'] for n in steps]}; max abs err {float(err.max()):.3g}, over "
+          f"1+|plain| {worst:.3g}")
+    check(sk == sp and int(rk) == int(rp) and torch.equal(ck, cp),
+          f"{name}: steps, claims, rays or sample counts differ from plain")
+    check(int(ck.sum()) == size * size * sq * sq, f"{name}: samples were lost")
+    check(torch.isfinite(fk).all().item() and worst <= 1e-6, f"{name}: frame differs from plain")
+    check(steps[3] == sk["steps"] and sum(steps[:3]) == sk["steps"],
+          f"{name}: B6 or the sphere sweep did not launch once a step")
+    return float(err.max())
+
+
+def eager_phases(mrt, flash, hybrid, noise, dev, card_line, refs, rows, size=500, spp=64,
+                 bounces=32, small=64, ref_size=100, profile_spp=8):
+    """Phases 18 to 22: kernel B6 and the renderers whose shading is tensor
+    operations. Returns B6's row of the result line; B8's row gains its
+    launches in the random_spheres_2 frame."""
+    import dataclasses
+
+    from miniraytracer_tpu_torch.models import integrator
+    from miniraytracer_tpu_torch.ops.vecmath import V3
+
+    rs2 = mrt.scenes.random_spheres_2(1.0).to(dev)
+
+    # 18. B6 vs plain on the points of queue step 2 of random_spheres_2 and on
+    # uniform points whose lattice cells run negative, an odd count of them
+    print(f"phase 18: turbulence kernel B6 vs plain PyTorch ({size}x{size} queue step 2, and "
+          "uniform points)")
+    ptab, p_step = turbulence_points(integrator, noise, rs2, size, 2)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    u = torch.rand((3, 1_000_003), generator=gen, device=dev) * 600.0 - 300.0
+    b6_err = 0.0
+    for label, p in (("random_spheres_2 queue step 2", p_step),
+                     ("uniform points in [-300, 300]^3", V3(u[0], u[1], u[2]))):
+        k, pl = noise.flash_turbulence(ptab, p), noise.flash_turbulence_plain(ptab, p)
+        err = float((k - pl).abs().max())
+        tol = 1e-6 * max(1.0, float(pl.abs().max()))
+        print(f"  {label}: {p.x.numel()} points, {int((p.x < 0).sum())} with a negative x; max abs "
+              f"err {err:.3g} (tolerance {tol:.3g}: 1e-6 of the largest value; 0 expected, both "
+              f"round the same operations in the same order)")
+        check(torch.isfinite(k).all().item() and err <= tol, f"{label}: B6 differs from plain")
+        b6_err = max(b6_err, err)
+    n = p_step.x.numel()
+    b6_k, b6_p = in_turns(lambda: noise.flash_turbulence(ptab, p_step),
+                          lambda: noise.flash_turbulence_plain(ptab, p_step), kernel_reps=20)
+    b6_bound, b6_by = bound(16 * n + 4 * ptab.numel(), n * FP32_OPS_PER_TURB_POINT)
+    print(f"  B6 at {n} points: kernel {b6_k} ms, plain {b6_p} ms, bound {b6_bound:.4f} ms by "
+          f"{b6_by} on {card_line}")
+
+    # 19. the queue with its shading in tensor operations, kernels vs plain
+    print(f"phase 19: work queue with its shading in tensor operations, kernels vs plain PyTorch, "
+          f"{small}x{small}, 4 spp, 8 bounces, 1000 lanes")
+    book2 = mrt.scenes.book2_final(1.0).to(dev)
+    for name, scene in (("random_spheres_2", rs2), ("book2_final", book2)):
+        compare_eager_queue(name, integrator, flash, noise, scene, small, 2, 8, 1000)
+
+    # 20. the plain wavefront on the card: a Perlin scene through B6, kernels
+    # vs plain; a fast_perlin scene through render()
+    print(f"phase 20: render_wavefront, {small}x{small}, 4 spp, 8 bounces")
+    perlin = mrt.scenes.perlin_spheres(1.0).to(dev)
+    noise.launches = 0
+    fk, sk = integrator.render_wavefront(perlin, small, small, 4, max_bounces=8)
+    b6_wave = noise.launches
+    fp, sp = integrator.render_wavefront(perlin, small, small, 4, max_bounces=8, plain=True)
+    err = float(((fk - fp).abs() / (1 + fp.abs())).max())
+    print(f"  perlin_spheres: {sk['steps']} steps, B6 launched {b6_wave} times, rays {sk['rays']} "
+          f"(plain {sp['rays']}), max err over 1+|plain| {err:.3g}")
+    check(sk["rays"] == sp["rays"] and sk["steps"] == sp["steps"] == b6_wave,
+          "perlin_spheres: the wavefront differs from plain or did not launch B6 once a step")
+    check(err <= 1e-6, "perlin_spheres: wavefront frame differs from plain")
+    fast = dataclasses.replace(mrt.scenes.perlin_spheres(1.0), fast_perlin=True)
+    frame, st = mrt.render(fast, small, small, 4, max_bounces=8)
+    print(f"  fast_perlin perlin_spheres through render(): renderer {st['renderer']}, "
+          f"{st['steps']} steps, rays {st['rays']}, frame mean {frame.mean(dim=(0, 1)).tolist()}")
+    check(st["renderer"] == "wavefront" and frame.is_cuda and torch.isfinite(frame).all().item(),
+          "fast_perlin: render() did not draw it through the wavefront on the card")
+
+    # 21. random_spheres_2 vs the reference renderer's frame. Its few earth-
+    # mapped spheres take the procedural map without the file, as in the
+    # JAX package, whose test holds 0.02 at this size
+    print(f"phase 21: random_spheres_2 vs reference renderer, {ref_size}x{ref_size}, 16 spp, "
+          "16 bounces")
+    frame, _ = mrt.render(rs2, ref_size, ref_size, 16, max_bounces=16)
+    ours = frame.cpu().numpy()
+    check(np.isfinite(ours).all(), "random_spheres_2: frame not finite")
+    ref_mean = refs["random_spheres_2"].mean(axis=(0, 1))
+    rel = np.abs(ref_mean - ours.mean(axis=(0, 1))) / np.maximum(ref_mean, 1e-6)
+    print(f"  channel means rel diff {rel.max():.4f} (tolerance 0.02)")
+    check(rel.max() < 0.02, "random_spheres_2: reference parity")
+
+    # 22. the main path: render() of random_spheres_2 at 500x500x64x32
+    print(f"phase 22: mrt.render(random_spheres_2, {size}, {size}, {spp}, max_bounces={bounces})")
+    scene = mrt.scenes.random_spheres_2(1.0)
+    torch.cuda.synchronize()
+    noise.launches = hybrid.shade_launches = 0
+    flash.sphere_launches = flash.gated_launches = flash.streamed_launches = 0
+    frame, stats = mrt.render(scene, size, size, spp, max_bounces=bounces)
+    b6, b8 = noise.launches, flash.sphere_launches
+    check(stats["renderer"] == "workqueue", f"renderer {stats['renderer']}")
+    check(b6 == b8 == stats["steps"] > 0 and hybrid.shade_launches == 0,
+          "the render did not launch B6 and B8 once a queue step (and no shade kernel)")
+    check(frame.shape == (size, size, 3) and frame.is_cuda, "frame shape/device")
+    check(torch.isfinite(frame).all().item(), "frame not finite")
+    check(stats["claimed"] == stats["lanes"] + size * size * stats["spp"], "claims")
+    print(f"  renderer {stats['renderer']}, {stats['lanes']} lanes, {stats['steps']} queue steps, "
+          f"launches B6 {b6} B8 {b8}, rays {stats['rays']}, frame mean "
+          f"{frame.mean(dim=(0, 1)).tolist()}")
+    scene_d = scene.to(dev)
+    ms = cuda_ms(lambda: mrt.render(scene_d, size, size, spp, max_bounces=bounces), 2)
+    med = statistics.median(ms)
+    print(f"  forward {stats['rays'] / (med / 1e3) / 1e6:.2f} Mrays/s (median of 2 warm renders, "
+          f"{med:.1f} ms each, {med / stats['steps']:.3f} ms a queue step; runs {ms}) on "
+          f"{card_line}")
+    # an 8-spp frame: the profiler keeps every launch of a frame (~1,800 a
+    # step) in memory, and reading them back takes longer than the frame
+    wall, busy, by_name = device_share(
+        lambda: mrt.render(scene_d, size, size, profile_spp, max_bounces=bounces))
+    named = {"turbulence_kernel": 0.0, "flash_sphere_kernel": 0.0}
+    for kname, (kms, _) in by_name.items():
+        for key in named:
+            if key in kname:
+                named[key] += kms
+    rest = busy - sum(named.values())
+    n_rest = sum(c for kname, (_, c) in by_name.items() if not any(k in kname for k in named))
+    print(f"  one {profile_spp}-spp frame under torch.profiler: wall {wall:.1f} ms, device busy "
+          f"{busy:.1f} ms (idle share {max(0.0, 1 - busy / wall):.3f}): B6 "
+          f"{named['turbulence_kernel']:.1f} ms, B8 {named['flash_sphere_kernel']:.1f} ms, "
+          f"{n_rest} other launches (intersection and shading in tensor operations, claiming, "
+          f"merging, camera rays) {rest:.1f} ms")
+    for kname, (kms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"    {kms:8.2f} ms  {100 * kms / busy:5.1f}%  x{count:<6d} {kname[:90]}")
+
+    for row in rows:
+        if row["name"] == "flash_sphere_hit":
+            row["launches_random_spheres_2"] = b8
+    return [{
+        "name": "flash_turbulence", "route": "cuda",
+        "source": "miniraytracer_tpu_torch/csrc/noise.cu",
+        "replaces": "miniraytracer_tpu/ops/noise.py:73", "launches": b6,
+        "max_abs_err": b6_err, "ms": statistics.mean(b6_k), "plain_ms": statistics.mean(b6_p),
+        "bound_ms": b6_bound, "bound_by": b6_by, "library_ms": None, "points": n,
+        "frame_ms": med, "frame_steps": stats["steps"], "frame_rays": stats["rays"],
+        "profile_spp": profile_spp, "profile_device_busy_ms": busy,
+        "profile_b6_device_ms": named["turbulence_kernel"],
+    }]
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """miniraytracer_tpu_torch — the PyTorch/CUDA port of miniraytracer_tpu.
 
-Four paths are ported. For the fused scene class (cornell_box,
+Five paths are ported. For the fused scene class (cornell_box,
 cornell_smoke, two_spheres, perlin_spheres): the forward path tracer
 (`render`, kernel `csrc/bounce.cu`) and the differentiable train step
 (`make_train_step`, kernels `csrc/bounce_ad.cu`: the scan step and its
@@ -11,8 +11,11 @@ feeding one step kernel of `csrc/hybrid.cu`) and the work-queue renderer
 (`render_workqueue`: earth with its image texture, book2_final with 1006
 spheres and 400 boxes: the clustered sphere sweeps of `csrc/flash.cu` and the
 shade kernel of `csrc/hybrid.cu`, lanes claiming (pixel, sample) items from a
-global queue). The kernels are hand-written CUDA, built with nvcc on first
-use.
+global queue). Where that shade kernel does not fit the scene (random_spheres_2:
+its own materials, an image and Perlin noise), the queue, like the plain
+wavefront `render_wavefront`, runs the bounce in tensor operations, with the
+sweeps of `csrc/flash.cu` and the turbulence kernel of `csrc/noise.cu`. The
+kernels are hand-written CUDA, built with nvcc on first use.
 
 The entry points run on the NVIDIA GPU: `device=None` means "cuda", the scene
 is moved there, and with no card the call raises. `device="cpu"` runs the
@@ -26,6 +29,7 @@ Quick start:
     frame, stats = mrt.render(scene, 500, 500, spp=64)      # on the GPU
     frame, stats = mrt.render(mrt.scenes.random_spheres(1.0), 500, 500, 64)
     frame, stats = mrt.render(mrt.scenes.book2_final(1.0), 500, 500, 64)
+    frame, stats = mrt.render(mrt.scenes.random_spheres_2(1.0), 500, 500, 64)
 
     step = mrt.make_train_step(width=500, height=500, max_bounces=32,
                                spp_step=128)
@@ -40,6 +44,7 @@ from miniraytracer_tpu_torch.scene.builder import SceneBuilder  # noqa: F401
 from miniraytracer_tpu_torch.models import scenes  # noqa: F401
 from miniraytracer_tpu_torch.models.integrator import (  # noqa: F401
     render_auto as render,
+    render_wavefront,
     render_workqueue,
     pick_renderer,
 )

@@ -1,27 +1,32 @@
 """Forward-render entry points of the port (`miniraytracer_tpu/models/
-integrator.py`): sample offsets, the work-queue renderer, the renderer pick,
-and `render_auto`.
+integrator.py`): the bounce in tensor operations (`_shade_and_advance`,
+`trace_paths`), the plain wavefront, the work-queue renderer, the renderer
+pick and `render_auto`.
 
-The fused renderer (`ops/bounce.py`), the hybrid step renderer
-(`ops/hybrid.py`) and the work queue with fused shading (here) are ported. A
-scene that the JAX package's rule sends elsewhere (the work queue with its
-shading in tensor operations, the plain wavefront) raises
-`NotImplementedError` naming that renderer; nothing is substituted silently.
+Four renderers: the fused render (`ops/bounce.py`), the hybrid step renderer
+(`ops/hybrid.py`), and here the work queue (with its shading in the hybrid
+machinery's step kernel, or in tensor operations) and the plain wavefront,
+whose shading is `_shade_and_advance`: the nearest hit of
+`intersect.scene_hit`, with the sweeps and the turbulence that
+`intersect.make_accel` hands to kernels, then `materials.shade`.
 """
 
 from __future__ import annotations
 
 import math
 import time as _time
+from typing import NamedTuple
 
 import torch
 
 from miniraytracer_tpu_torch.models import camera as cam_mod
+from miniraytracer_tpu_torch.models import materials as mat_mod
 from miniraytracer_tpu_torch.ops import bounce, hybrid, rng
 from miniraytracer_tpu_torch.ops import intersect as ix
-from miniraytracer_tpu_torch.ops.vecmath import V3, vwhere
+from miniraytracer_tpu_torch.ops.vecmath import V3, vluminance, vwhere
 from miniraytracer_tpu_torch.scene import types as T
 from miniraytracer_tpu_torch.utils.device import resolve
+
 
 def sample_offsets(spp: int, device=None):
     """Stratified sqrt(spp)^2 regular grid of subpixel offsets
@@ -34,6 +39,145 @@ def sample_offsets(spp: int, device=None):
         ((i % sq).to(torch.float32) + 0.5) / sq,
     ], dim=1)
     return offs, ns
+
+
+# ---------------------------------------------------------------------------
+# The bounce in tensor operations
+# ---------------------------------------------------------------------------
+
+
+class PathState(NamedTuple):
+    ro: V3
+    rd: V3
+    time: torch.Tensor
+    inside: torch.Tensor
+    beta: V3  # throughput
+    radiance: V3
+    alive: torch.Tensor  # (N,) bool
+    keys: torch.Tensor  # (N,) u32 (in int64) root key of each path
+    rays_traced: torch.Tensor  # () int64
+
+
+def _shade_and_advance(scene, rays: ix.Rays, keys_b, depth_ok, alive, beta: V3,
+                       radiance: V3, accel=None, plain=False):
+    """One bounce for every lane: the nearest hit (`intersect.scene_hit`),
+    shading (`materials.shade`) and the radiance and throughput advance
+    (`bounce.advance`, with the sky of `bounce.background_color`).
+    `accel` is `intersect.make_accel`'s dict; with `plain` its kernels' plain
+    versions run. Returns (rec, scatter, cont, beta', radiance')."""
+    u_vol = (torch.stack([rng.uniform(keys_b, mat_mod.SLOT_VOL + vi)
+                          for vi in range(scene.n_volumes)], dim=-1)
+             if scene.n_volumes > 0 else None)
+    rec = ix.scene_hit(scene, rays, u_vol, accel=accel, plain=plain)
+    sc = mat_mod.shade(scene, rays, rec, keys_b, depth_ok, accel=accel, plain=plain)
+    cont, beta, radiance = bounce.advance(alive, rec.hit, sc.scattered, sc.add_emitted,
+                                          sc.emitted, sc.weight,
+                                          bounce.background_color(scene.use_sky, rays.rd),
+                                          beta, radiance)
+    return rec, sc, cont, beta, radiance
+
+
+def _bounce(scene, state: PathState, depth, max_bounces, accel=None, plain=False) -> PathState:
+    """One bounce of every path at the common depth `depth`."""
+    rays = ix.Rays(ro=state.ro, rd=state.rd, time=state.time, inside=state.inside)
+    rec, sc, cont, beta, radiance = _shade_and_advance(
+        scene, rays, rng.fold(state.keys, depth), torch.full_like(state.alive, depth < max_bounces),
+        state.alive, state.beta, state.radiance, accel, plain)
+    return PathState(
+        ro=vwhere(cont, rec.p, state.ro), rd=vwhere(cont, sc.new_rd, state.rd),
+        time=state.time, inside=torch.where(cont, sc.new_inside, state.inside),
+        beta=beta, radiance=radiance, alive=cont, keys=state.keys,
+        rays_traced=state.rays_traced + state.alive.sum())
+
+
+def trace_paths(scene: T.SceneData, rays0: ix.Rays, keys, max_bounces: int,
+                loop: str = "while", plain=False):
+    """Radiance of one path for each primary ray in `rays0`, with `keys` the
+    paths' root keys: bounces at depth 0..max_bounces (at max_bounces only
+    emission and the background count) while any path is alive, one read of
+    `any(alive)` by the host a bounce. Returns (radiance V3, rays traced as a
+    0-d int64 tensor). The fixed-length `loop="scan"` of the AD paths is not
+    ported (ROADMAP.md A11)."""
+    if loop != "while":
+        raise NotImplementedError(
+            f"trace_paths(loop={loop!r}): the scan loop of the AD paths is not ported "
+            "yet (ROADMAP.md A11)")
+    n, dev = rays0.time.shape[0], rays0.time.device
+    one, zero = torch.ones((n,), device=dev), torch.zeros((n,), device=dev)
+    state = PathState(ro=rays0.ro, rd=rays0.rd, time=rays0.time, inside=rays0.inside,
+                      beta=V3(one, one, one), radiance=V3(zero, zero, zero),
+                      alive=torch.ones((n,), dtype=torch.bool, device=dev), keys=keys,
+                      rays_traced=torch.zeros((), dtype=torch.int64, device=dev))
+    accel = ix.make_accel(scene)
+    depth = 0
+    while depth <= max_bounces and bool(state.alive.any()):
+        state = _bounce(scene, state, depth, max_bounces, accel, plain)
+        depth += 1
+    return state.radiance, state.rays_traced
+
+
+# ---------------------------------------------------------------------------
+# The plain wavefront: one lane per pixel, regenerated onto its next sample
+# ---------------------------------------------------------------------------
+
+
+def render_wavefront_pixels(scene: T.SceneData, pix, sample_lo: int, n_samples: int,
+                            max_lum, *, width: int, height: int, max_bounces: int,
+                            spp_sq: int, plain: bool = False, stats=None):
+    """Render samples [sample_lo, sample_lo + n_samples) of each pixel in `pix`
+    ((N,) int32, index x + y*width), one lane a pixel, on the scene's device.
+    When a lane's path ends it folds the sample into its pixel's running
+    average (the draw2 merge with its NaN reuse and luminance clamp,
+    main.cpp:214-229) and starts the pixel's next sample. A step is the
+    bounce of `_shade_and_advance` (kernels for a CUDA scene, their plain
+    versions for a CPU scene or with `plain`) and `bounce.finish_step`, the
+    merge of the fused render's plain version; the host reads `any(alive)`
+    once a step. Returns (accum (N,3) f32 = running average * count, count
+    (N,) i32, rays (N,) i32); `stats`, a dict, receives "steps"."""
+    bounce.check_render_args(scene, pix, width, height, spp_sq, max_bounces)
+    accel = ix.make_accel(scene)
+    cam = bounce.camera_table(scene.camera)
+    pix64 = pix.to(torch.int64)
+    s = bounce.initial_lanes(scene, pix64, sample_lo, n_samples, width=width,
+                             height=height, spp_sq=spp_sq)
+    steps = 0
+    while bool(s.alive.any()):
+        rays = ix.Rays(ro=s.ro, rd=s.rd, time=s.time, inside=s.inside)
+        rec, sc, cont, beta, radiance = _shade_and_advance(
+            scene, rays, rng.fold(s.keys, s.depth), s.depth < max_bounces, s.alive, s.beta,
+            s.radiance, accel, plain)
+        s = bounce.finish_step(cam, width, height, spp_sq, max_lum, sample_lo, n_samples,
+                               pix64, s, cont, rec.p, sc.new_rd, sc.new_inside, beta, radiance)
+        steps += 1
+    if stats is not None:
+        stats["steps"] = steps
+    return s.accum.arr, s.count, s.rays
+
+
+def render_wavefront(scene: T.SceneData, width: int, height: int, spp: int,
+                     max_bounces: int = 32, max_lum: float = 1000.0, plain: bool = False):
+    """Full-frame plain-wavefront render on the scene's device. Returns
+    (frame (H,W,3) f32 tensor, stats); stats["rays"] is the exact int ray
+    count, stats["steps"] the number of wave steps."""
+    sq = int(math.isqrt(spp))
+    ns = sq * sq
+    t0 = _time.perf_counter()
+    pix = torch.arange(width * height, dtype=torch.int32, device=scene.device)
+    stats = {}
+    accum, count, rays = render_wavefront_pixels(
+        scene, pix, 0, ns, max_lum, width=width, height=height, max_bounces=max_bounces,
+        spp_sq=sq, plain=plain, stats=stats)
+    frame = accum / torch.clamp_min(count.to(torch.float32), 1.0)[:, None]
+    total = int(rays.sum(dtype=torch.int64))  # waits for the device
+    elapsed = _time.perf_counter() - t0
+    return frame.reshape(height, width, 3), {
+        "seconds": elapsed,
+        "rays": total,
+        "mrays_per_s": total / elapsed / 1e6 if elapsed > 0 else 0.0,
+        "spp": ns,
+        "steps": stats["steps"],
+        "renderer": "wavefront",
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -54,10 +198,12 @@ def render_workqueue_pixels(scene: T.SceneData, n_pix: int, n_lanes: int, n_samp
     glass) need ten times the bounces of the rest, where a pixel-pinned loop
     ends with its slowest pixel.
 
-    Shading is the hybrid machinery's (`hybrid.make_workqueue_shader`: the
-    kernels for a CUDA scene, their plain versions for a CPU scene or with
-    `plain`); claiming, merging and regeneration are tensor operations, with
-    one `any(alive)` read by the host a step.
+    Shading is the hybrid machinery's step kernel with `fused_shade`
+    (`hybrid.make_workqueue_shader`), else `_shade_and_advance` over
+    `intersect.make_accel`: the kernels for a CUDA scene, their plain
+    versions for a CPU scene or with `plain`. Claiming, merging and
+    regeneration are tensor operations, with one `any(alive)` read by the
+    host a step.
 
     Against the pixel-pinned renderers' merge: samples accumulate out of
     order, the luminance clamp applies to each sample (not to the running
@@ -69,19 +215,21 @@ def render_workqueue_pixels(scene: T.SceneData, n_pix: int, n_lanes: int, n_samp
     Returns (accum (n_pix, 3) f32 sums, count (n_pix,) f32, rays traced as a
     0-d int64 tensor). `stats`, a dict, receives "steps" and "claimed" (items
     handed out, the first `n_lanes` included)."""
-    if not fused_shade:
-        raise NotImplementedError(
-            f"scene {scene.name!r}: the work queue with its shading in tensor "
-            "operations (miniraytracer_tpu.models.integrator._shade_and_advance "
-            "over intersect.make_accel) is not ported yet: it needs the eager "
-            "physics of ROADMAP.md A5")
     if (min(n_pix, n_lanes, width, height, spp_sq) < 1 or n_pix > width * height
             or max_bounces < 0 or n_samples < 0):
         raise ValueError("n_pix (at most width * height), n_lanes, width, height and "
                          "spp_sq must be >= 1, max_bounces and n_samples >= 0")
     dev = scene.device
     total_items = n_pix * n_samples
-    shader = hybrid.make_workqueue_shader(scene, plain=plain)
+    if fused_shade:
+        shader = hybrid.make_workqueue_shader(scene, plain=plain)
+    else:
+        accel = ix.make_accel(scene)
+
+        def shader(rays, keys_b, depth_ok, alive, beta, radiance):
+            rec, sc, cont, beta, radiance = _shade_and_advance(
+                scene, rays, keys_b, depth_ok, alive, beta, radiance, accel, plain)
+            return rec.p, sc.new_rd, sc.new_inside, cont, beta, radiance
 
     def camera_rays(item):
         pix = item % n_pix
@@ -117,7 +265,7 @@ def render_workqueue_pixels(scene: T.SceneData, n_pix: int, n_lanes: int, n_samp
         # ---- add finished samples to the frame ----
         ok = (finished & torch.isfinite(radiance.x) & torch.isfinite(radiance.y)
               & torch.isfinite(radiance.z))
-        lum = 0.212655 * radiance.x + 0.715158 * radiance.y + 0.072187 * radiance.z
+        lum = vluminance(radiance)
         scale = torch.where(lum > max_lum, max_lum / torch.clamp_min(lum, 1e-12), 1.0)
         okf = ok.to(torch.float32)
         add = torch.stack([*(torch.where(ok, c * scale, 0.0) for c in radiance), okf], dim=1)
@@ -166,8 +314,7 @@ def render_workqueue(scene: T.SceneData, width: int, height: int, spp: int,
     many, one queue each, merged at the end: stratification spans the full
     spp, so the estimator is that of the one-shot render up to the order of
     accumulation. `fused_shade` "auto" resolves through
-    `hybrid.prefer_hybrid`; where it is false the call raises (see
-    `render_workqueue_pixels`). Returns (frame (H,W,3) f32 tensor, stats);
+    `hybrid.prefer_hybrid` (see `render_workqueue_pixels`). Returns (frame (H,W,3) f32 tensor, stats);
     stats["rays"] is the exact int ray count, stats["steps"] the number of
     queue steps, stats["claimed"] the items handed out."""
     if fused_shade == "auto":
@@ -228,16 +375,9 @@ def render_auto(scene, width, height, spp, max_bounces=32, max_lum=1000.0,
                 device=None):
     """Render with the picked forward renderer on `device`: None means the
     GPU (raises when there is none), and the scene is moved there. Returns
-    (frame (H,W,3) float32 tensor on that device, stats). The plain wavefront
-    renderer is not ported: a scene the rule sends there raises."""
-    which = pick_renderer(scene)
-    if which == "wavefront":
-        raise NotImplementedError(
-            f"scene {scene.name!r}: the JAX package renders it with "
-            "render_wavefront (miniraytracer_tpu.models.integrator), the plain "
-            "wavefront with its shading in tensor operations, which is not "
-            "ported yet (ROADMAP.md A5)")
+    (frame (H,W,3) float32 tensor on that device, stats)."""
     render = {"fused": bounce.render_wavefront_fused,
               "hybrid": hybrid.render_wavefront_hybrid,
-              "workqueue": render_workqueue}[which]
+              "workqueue": render_workqueue,
+              "wavefront": render_wavefront}[pick_renderer(scene)]
     return render(scene.to(resolve(device)), width, height, spp, max_bounces, max_lum)

@@ -162,7 +162,7 @@ def _pixel_step_math(meta, cfg: StepConfig, tabs, camv, ptab, pix, sampbase,
     ones3 = V3(zero + 1.0, zero + 1.0, zero + 1.0)
 
     miss = alive & ~b.hit
-    bg = B.background_color(meta, rd)
+    bg = B.background_color(meta["use_sky"], rd)
     radiance = radiance + vwhere(miss, beta * bg, zero3)
     emit_mask = alive & b.hit & add_emitted
     radiance = radiance + vwhere(emit_mask, beta * b.emitted, zero3)

@@ -50,6 +50,7 @@ from miniraytracer_tpu_torch.models import textures
 from miniraytracer_tpu_torch.ops import bounce as B
 from miniraytracer_tpu_torch.ops import flash
 from miniraytracer_tpu_torch.ops import intersect as ix
+from miniraytracer_tpu_torch.ops import noise
 from miniraytracer_tpu_torch.ops import rng
 from miniraytracer_tpu_torch.ops.vecmath import V3, vwhere
 from miniraytracer_tpu_torch.scene import types as T
@@ -304,11 +305,6 @@ def _const_miss_rows(n, emat, device):
     return rows + (z,)
 
 
-# hybrid_accel's entry for the sphere set -> the sweep of ops/flash.py over it
-_SPHERE_SWEEPS = {"sph": "flash_sphere_hit", "sph_gate": "flash_sphere_hit_gated",
-                  "sph_cull": "flash_sphere_hit_streamed"}
-
-
 def _external_candidate(scene, accel, rays: ix.Rays, alive, tmin, ptab=None,
                         plain=False):
     """Sweep the external types (with the sweeps' plain versions if `plain`)
@@ -334,9 +330,9 @@ def _external_candidate(scene, accel, rays: ix.Rays, alive, tmin, ptab=None,
 
     sweep = lambda name: getattr(flash, name + "_plain" if plain else name)
     t_s, i_s = inf, izero
-    sph_key = next((k for k in _SPHERE_SWEEPS if k in accel), None)
+    sph_key = next((k for k in ix._SPHERE_SWEEPS if k in accel), None)
     if sph_key:
-        t_s, i_s = sweep(_SPHERE_SWEEPS[sph_key])(
+        t_s, i_s = sweep(ix._SPHERE_SWEEPS[sph_key])(
             accel[sph_key], nan3, nand, rays.time, rays.inside, tmin)
     t_t, i_t = inf, izero
     if "tri" in accel:
@@ -597,7 +593,7 @@ def make_workqueue_shader(scene: T.SceneData, plain=False):
     meta, tables = pack_scene_hybrid(scene)
     cfg = ShadeConfig(meta=meta, tables=tuple(tables), images=scene.images)
     accel = hybrid_accel(scene)
-    ptab = B.perlin_table(scene) if scene.has_perlin else None
+    ptab = noise.noise_tables(scene) if scene.has_perlin else None
     step = shade_step_plain if plain else shade_step
 
     def shader(rays: ix.Rays, keys_b, depth_ok, alive, beta: V3, radiance: V3):
@@ -646,17 +642,10 @@ def state_rays(fstate, istate) -> ix.Rays:
 
 
 def _render_args(scene, pix, width, height, spp_sq, max_bounces):
-    if pix.dtype != torch.int32 or pix.dim() != 1:
-        raise ValueError(f"pix must be a 1-D int32 tensor, got {pix.dtype} "
-                         f"of shape {tuple(pix.shape)}")
-    if pix.device != scene.device:
-        raise ValueError(f"pix is on {pix.device}, the scene on {scene.device}")
+    B.check_render_args(scene, pix, width, height, spp_sq, max_bounces)
     if not can_hybrid(scene):
         raise ValueError(f"scene {scene.name!r} is outside the hybrid class "
                          "(see can_hybrid)")
-    if min(width, height, spp_sq) < 1 or max_bounces < 0:
-        raise ValueError("width, height and spp_sq must be >= 1 and "
-                         "max_bounces >= 0")
 
 
 def render_wavefront_hybrid_pixels(scene, pix, sample_lo, n_samples, max_lum,
@@ -675,7 +664,7 @@ def render_wavefront_hybrid_pixels(scene, pix, sample_lo, n_samples, max_lum,
                      width=width, height=height, sq=spp_sq,
                      max_bounces=max_bounces, max_lum=float(max_lum),
                      sample_lo=int(sample_lo), n_samples=int(n_samples))
-    ptab = B.perlin_table(scene) if scene.has_perlin else None
+    ptab = noise.noise_tables(scene) if scene.has_perlin else None
     step = hybrid_step_plain if plain else hybrid_step
     fstate, istate, keys, rays_ct = initial_state(
         scene, pix, sample_lo, n_samples, width=width, height=height,

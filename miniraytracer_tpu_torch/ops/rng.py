@@ -71,11 +71,73 @@ def uniform(key, slot) -> torch.Tensor:
     return f.view(torch.float32) - 1.0
 
 
+def uniform2(key, slot):
+    return uniform(key, slot), uniform(key, slot + 1)
+
+
+def uniform3(key, slot):
+    return uniform(key, slot), uniform(key, slot + 1), uniform(key, slot + 2)
+
+
+# ---------------------------------------------------------------------------
+# Direction and point samplers: pre-drawn uniforms in, componentwise V3 out
+# (`miniraytracer_tpu/ops/rng.py:93-162`). sin, cos and the cube root are
+# the library's, so they may differ from XLA's in the last bit.
+# ---------------------------------------------------------------------------
+
+
+def sample_cosine_direction(r1, r2) -> V3:
+    """The reference's cosine-ish lobe in the local (u, v, w) frame
+    (pcg.cpp:87-98), with its factor 2 on x and y kept (quirk, pcg.h:15-17)."""
+    z = vsqrt(torch.clamp_min(1.0 - r2, 0.0))
+    phi = 2.0 * PI * r1
+    sq = 2.0 * vsqrt(r2)
+    return V3(torch.cos(phi) * sq, torch.sin(phi) * sq, z)
+
+
+def sample_cosine_direction_exact(r1, r2) -> V3:
+    """Textbook cosine-weighted hemisphere sample (the opt-in variant)."""
+    z = vsqrt(torch.clamp_min(1.0 - r2, 0.0))
+    phi = 2.0 * PI * r1
+    sq = vsqrt(r2)
+    return V3(torch.cos(phi) * sq, torch.sin(phi) * sq, z)
+
+
+def sample_on_sphere(r1, r2) -> V3:
+    """Uniform direction on the unit sphere (pcg.cpp:102-110)."""
+    x = r1 * 2.0 - 1.0
+    phi = r2 * 2.0 * PI
+    s = vsqrt(torch.clamp_min(1.0 - x * x, 0.0))
+    return V3(x, torch.cos(phi) * s, torch.sin(phi) * s)
+
+
+def sample_in_ball(r1, r2, r3) -> V3:
+    """Uniform point in the unit ball: a direction scaled by the cube root of
+    r3 (the analytic form of pcg.cpp:70-80's rejection loop). The fused
+    kernels take the root as exp(log(r)/3) instead (`bounce._sample_in_ball`)."""
+    return sample_on_sphere(r1, r2) * torch.pow(r3, 1.0 / 3.0)
+
+
 def sample_in_disk(r1, r2) -> V3:
     """Uniform point in the unit disk (z=0), analytic form."""
     rad = vsqrt(r1)
     phi = 2.0 * PI * r2
     return V3(rad * torch.cos(phi), rad * torch.sin(phi), torch.zeros_like(r1))
+
+
+def sample_towards_sphere(radius, dist_sq, r1, r2) -> V3:
+    """Cone sample towards a sphere of `radius` at squared distance
+    `dist_sq`, +z towards its centre (pcg.cpp:125-136), with the JAX
+    package's eps margins on both square roots."""
+    frac = torch.clamp(1.0 - radius * radius / torch.clamp_min(dist_sq, 1e-30), 0.0, 1.0)
+    f_ok = frac > 1e-12
+    sq_frac = torch.where(f_ok, vsqrt(torch.where(f_ok, frac, 1.0)), 0.0)
+    z = 1.0 + r2 * (sq_frac - 1.0)
+    phi = 2.0 * PI * r1
+    z2 = z * z
+    z_ok = z2 < 1.0 - 1e-12
+    s = torch.where(z_ok, vsqrt(torch.where(z_ok, 1.0 - z2, 1.0)), 0.0)
+    return V3(torch.cos(phi) * s, torch.sin(phi) * s, z)
 
 
 # ---------------------------------------------------------------------------

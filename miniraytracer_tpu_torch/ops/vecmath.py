@@ -1,9 +1,9 @@
 """Vector math core of the port: a structure-of-arrays 3-vector over tensors.
 
-Mirrors `miniraytracer_tpu/ops/vecmath.py` for what the fused forward path
-uses (V3, dot, cross, safe normalize, select). x/y/z stay three separate
-(N,) tensors so every op is elementwise; the (..., 3) form exists only at
-host boundaries (framebuffers, scene tables).
+Mirrors `miniraytracer_tpu/ops/vecmath.py` (V3, dot, cross, safe normalize,
+select, reflect, refract, luminance, orthonormal basis). x/y/z stay three
+separate (N,) tensors so every op is elementwise; the (..., 3) form exists
+only at host boundaries (framebuffers, scene tables).
 """
 
 from __future__ import annotations
@@ -84,6 +84,54 @@ def vwhere(mask, a: V3, b: V3) -> V3:
         torch.where(mask, a.y, b.y),
         torch.where(mask, a.z, b.z),
     )
+
+
+def vsdot(a: V3):
+    """Squared length."""
+    return a.x * a.x + a.y * a.y + a.z * a.z
+
+
+def vlength(a: V3):
+    return vsqrt(vsdot(a))
+
+
+def vreflect(v: V3, n: V3) -> V3:
+    """v - 2*dot(v,n)*n (vec3.h:178-181)."""
+    return v - n * (2.0 * vdot(v, n))
+
+
+def vrefract(v: V3, n: V3, ni_over_nt):
+    """Snell refraction (vec3.h:185-198) -> (refracted, ok). Where sinT2 is
+    within 1e-9 of 1 (or beyond it: total internal reflection), cosT is 0,
+    the JAX package's eps margin."""
+    ncosI = vdot(v, n)
+    sinT2 = (ni_over_nt * ni_over_nt) * (1.0 - ncosI * ncosI)
+    ok = sinT2 <= 1.0
+    safe = sinT2 < 1.0 - 1e-9
+    cosT = torch.where(safe, vsqrt(torch.where(safe, 1.0 - sinT2, 1.0)), 0.0)
+    refracted = v * ni_over_nt + n * (ni_over_nt * (-ncosI) - cosT)
+    return refracted, ok
+
+
+def vluminance(c: V3):
+    """BT.709 luminance (vec3.h:275-279)."""
+    return 0.212655 * c.x + 0.715158 * c.y + 0.072187 * c.z
+
+
+def vonb_from_w(n: V3):
+    """Orthonormal basis (u, v, w) from a unit normal w = n (onb.h:19-23)."""
+    big_x = torch.abs(n.x) > 0.9
+    zero = torch.zeros_like(n.x)
+    a = V3(torch.where(big_x, 0.0, 1.0 + zero), torch.where(big_x, 1.0, zero),
+           zero)
+    v = vnormalize(vcross(n, a))
+    u = vcross(n, v)
+    return u, v, n
+
+
+def vonb_l2w(u: V3, v: V3, w: V3, local: V3) -> V3:
+    """local.x*u + local.y*v + local.z*w (onb.h:25-27)."""
+    return u * local.x + v * local.y + w * local.z
 
 
 # ---------------------------------------------------------------------------

@@ -315,11 +315,8 @@ def test_pick_renderer_follows_the_jax_rule(monkeypatch, name):
     """On all nine scene classes, with the JAX rule evaluated as on its
     accelerator. The two scenes the port cannot build are carried over from
     the JAX package (`from_numpy`); triangles lacks its mesh files here in
-    both packages alike. `render` then raises for the renderers that are not
-    ported, naming them: the work queue with its shading in tensor
-    operations (random_spheres_2), and the plain wavefront (no reference
-    scene lands there on the accelerator; a small scene with a material a
-    sphere does)."""
+    both packages alike. random_spheres_2 goes to the work queue with its
+    shading in tensor operations, and `render` draws it."""
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     js = getattr(jscenes, name)(1.0)
     want = jinteg.pick_renderer(js)
@@ -332,8 +329,8 @@ def test_pick_renderer_follows_the_jax_rule(monkeypatch, name):
         assert want == {"random_spheres": "hybrid", "random_spheres_2": "workqueue",
                         "earth": "workqueue", "book2_final": "workqueue"}.get(name, "fused")
     if name == "random_spheres_2":
-        with pytest.raises(NotImplementedError, match="_shade_and_advance.*A5"):
-            mrt.render(ts, 4, 4, 1, device="cpu")
+        frame, stats = mrt.render(ts, 4, 4, 1, max_bounces=3, device="cpu")
+        assert stats["renderer"] == "workqueue" and torch.isfinite(frame).all()
 
 
 def _many(n_sph=0, n_tri=0, n_box=0, own_materials=False, image=False):
@@ -362,8 +359,10 @@ def _many(n_sph=0, n_tri=0, n_box=0, own_materials=False, image=False):
 @pytest.mark.parametrize("counts,kernel", [
     (dict(n_tri=1100), "B10"), (dict(n_tri=1100, n_sph=600), "B11"),
     (dict(n_tri=2100), "B9"),
-    (dict(n_sph=70, own_materials=True, image=True), "_shade_and_advance"),
-    (dict(n_sph=30, own_materials=True), "render_wavefront")])
+    # the work queue with its shading in tensor operations, and the plain
+    # wavefront, over `intersect.make_accel`
+    (dict(n_tri=1100, n_sph=70, own_materials=True, image=True), "B9-B11"),
+    (dict(n_tri=1100, n_sph=30, own_materials=True, image=True), "tri_cull_build")])
 def test_unported_tiers_raise_and_name_their_kernel(counts, kernel):
     scene = _many(**counts)
     with pytest.raises(NotImplementedError, match=kernel):
@@ -376,13 +375,20 @@ def test_unported_tiers_raise_and_name_their_kernel(counts, kernel):
     (dict(n_sph=70, n_box=70), "hybrid", {"sph"}),
     (dict(n_sph=2100), "workqueue", {"sph_gate"}),
     (dict(n_sph=4200), "workqueue", {"sph_cull"}),
-    (dict(n_sph=70, n_box=400), "workqueue", {"sph"})])
+    (dict(n_sph=70, n_box=400), "workqueue", {"sph"}),
+    (dict(n_sph=70, own_materials=True, image=True), "workqueue", {"sph"}),
+    (dict(n_sph=30, own_materials=True), "wavefront", set())])
 def test_ported_tiers_route_and_render(counts, renderer, accel):
-    """The gated (B13) and streamed (B12) sphere tiers and an outside box
-    set, which raised before they were ported: `hybrid_accel` builds their
-    entries by the JAX package's thresholds and `render` draws the scene."""
+    """The gated (B13) and streamed (B12) sphere tiers, an outside box set,
+    the work queue with its shading in tensor operations and the plain
+    wavefront, which raised before they were ported: `hybrid_accel` (or, for
+    the last two, `intersect.make_accel`) builds the sweeps' entries by the
+    JAX package's thresholds and `render` draws the scene."""
+    from miniraytracer_tpu_torch.ops import intersect as tix
+
     scene = _many(**counts)
-    assert set(thybrid.hybrid_accel(scene)) == accel
+    eager = renderer == "wavefront" or not thybrid.prefer_hybrid(scene)
+    assert set((tix.make_accel if eager else thybrid.hybrid_accel)(scene)) == accel
     assert thybrid._ext_types(scene)[2] == (counts.get("n_box", 0) > 64)
     assert mrt.pick_renderer(scene) == renderer
     frame, stats = mrt.render(scene, 4, 4, 1, max_bounces=3, device="cpu")

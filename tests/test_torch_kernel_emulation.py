@@ -28,6 +28,8 @@ from miniraytracer_tpu_torch.ops import bounce as tbounce
 from miniraytracer_tpu_torch.ops import bounce_ad as tad
 from miniraytracer_tpu_torch.ops import flash as tflash
 from miniraytracer_tpu_torch.ops import hybrid as thybrid
+from miniraytracer_tpu_torch.ops import intersect as tix
+from miniraytracer_tpu_torch.ops import noise as tnoise
 from miniraytracer_tpu_torch.ops.vecmath import V3
 from miniraytracer_tpu_torch.parallel import train as ttrain
 from miniraytracer_tpu_torch.scene.builder import SceneBuilder
@@ -57,11 +59,12 @@ def host_libraries(tmp_path_factory):
         pytest.skip("no g++ to build the host emulation of the kernels")
     out = tmp_path_factory.mktemp("host_kernels")
     libs = {}
-    for name in ("bounce", "bounce_ad", "flash", "hybrid"):
+    for name in ("bounce", "bounce_ad", "flash", "hybrid", "noise"):
         path = out / f"lib{name}_host.so"
         subprocess.run(
             [gxx, "-O1", "-std=c++17", "-ffp-contract=off", "-x", "c++",
              "-DMRT_HOST_EMULATION", "-DMRT_AD_THREADS=1", "-DMRT_FLASH_THREADS=1",
+             "-DMRT_NOISE_THREADS=1",
              "-shared", "-fPIC",
              "-o", str(path), str(kernels.CSRC / f"{name}.cu")],
             check=True, capture_output=True, text=True, timeout=300)
@@ -442,3 +445,41 @@ def test_emulated_workqueue_render_matches_plain(emulated, monkeypatch, name):
     frame = lambda a, c: a / c.clamp_min(1)[:, None]
     err = (frame(ak, ck) - frame(ap, cp)).abs().amax(dim=1)
     assert float((err <= 3e-5).float().mean()) >= 0.99 and float(err.max()) <= 2e-3
+
+
+@pytest.mark.parametrize("n,span", [(777, 300.0), (4097, 9.0)])
+def test_emulated_turbulence_matches_plain(emulated, n, span):
+    """B6 (`noise.cu`, `physics.cuh::turbulence` over tables staged in shared
+    memory) against `flash_turbulence_plain`: EQUAL, on points whose lattice
+    cells run negative (the `& 255` wrap) and an N that is no multiple of the
+    block, from components that are views of one strided tensor."""
+    ptab = tnoise.noise_tables(tscenes.perlin_spheres(1.0))
+    rs = np.random.default_rng(n)
+    pts = torch.as_tensor(rs.uniform(-span, span, (n, 3)).astype(np.float32))
+    pts[:7] = torch.tensor([-0.5, -256.25, -1e-3])  # negative cells next to 0 and 256
+    p = V3(pts[:, 0], pts[:, 1], pts[:, 2])
+    launches = tnoise.launches
+    got = tnoise.flash_turbulence(ptab, p)
+    assert tnoise.launches == launches + 1
+    assert torch.equal(got, tnoise.flash_turbulence_plain(ptab, p))
+    assert (pts < 0).any() and got.shape == (n,)
+
+
+def test_emulated_eager_queue_matches_plain(emulated):
+    """random_spheres_2 through the work queue with its shading in tensor
+    operations: the sweep B8 and the turbulence B6 (emulated) against their
+    plain versions. Both kernels equal their plain versions to the bit, so
+    the two renders are equal: steps, claims, rays and frames."""
+    scene = tscenes.random_spheres_2(1.0)
+    assert set(tix.make_accel(scene)) == {"sph", "perlin"}
+    kw = dict(width=10, height=10, max_bounces=5, spp_sq=2, fused_shade=False)
+    launches = (tflash.sphere_launches, tnoise.launches)
+    stats_k, stats_p = {}, {}
+    ak, ck, rk = tinteg.render_workqueue_pixels(scene, 100, 100, 4, 1000.0, stats=stats_k, **kw)
+    assert tflash.sphere_launches == launches[0] + stats_k["steps"]
+    assert tnoise.launches == launches[1] + stats_k["steps"]
+    ap, cp, rp = tinteg.render_workqueue_pixels(scene, 100, 100, 4, 1000.0, stats=stats_p,
+                                                plain=True, **kw)
+    assert tflash.sphere_launches == launches[0] + stats_k["steps"]
+    assert stats_k == stats_p and int(rk) == int(rp)
+    assert torch.equal(ck, cp) and torch.equal(ak, ap)

@@ -30,9 +30,9 @@ from miniraytracer_tpu_torch.scene import types as ttypes
 torch.set_num_threads(1)
 
 FUSED = ["two_spheres", "perlin_spheres", "cornell_box", "cornell_smoke"]
-# the scenes the port builds: the fused class, the hybrid renderer's
-# random_spheres, the work queue's earth and book2_final
-PORTED = FUSED + ["random_spheres", "earth", "book2_final"]
+# the scenes the port builds: all nine (triangles without its mesh files,
+# which the repository does not hold, in both packages alike)
+PORTED = list(jscenes.SCENE_NAMES)
 PORT = pathlib.Path(__file__).resolve().parent.parent / "miniraytracer_tpu_torch"
 
 
@@ -98,9 +98,10 @@ def test_pack_scene_equals_jax(name):
 
 @pytest.mark.parametrize("name", PORTED)
 def test_from_numpy_equals_port_build(name):
-    carried = ttypes.from_numpy(_leaves(getattr(jscenes, name)(1.0)))
+    js = getattr(jscenes, name)(1.0)
+    carried = ttypes.from_numpy(_leaves(js))
     _assert_same(_leaves(carried), _leaves(getattr(tscenes, name)(1.0)))
-    assert tbounce.can_fuse(carried) == (name in FUSED)
+    assert tbounce.can_fuse(carried) == (name in FUSED + ["triangles"])
     assert carried.images.dtype == torch.uint32  # the image atlas too
 
 
@@ -112,12 +113,86 @@ def test_scene_to_device_keeps_everything():
 
 
 def test_unported_scenes_raise():
+    """No scene is left unported: `select_scene` builds each of the nine by
+    its id, as the JAX package's does; an id beyond them raises."""
+    assert tscenes.SCENE_NAMES == jscenes.SCENE_NAMES
     for sid, name in enumerate(tscenes.SCENE_NAMES):
-        if name in PORTED:
-            assert tscenes.select_scene(sid, 1.0).name == name
-        else:
-            with pytest.raises(NotImplementedError, match=name):
-                tscenes.select_scene(sid, 1.0)
+        assert tscenes.select_scene(sid, 1.0).name == name
+    with pytest.raises(IndexError):
+        tscenes.select_scene(len(tscenes.SCENE_NAMES), 1.0)
+
+
+# a quad and a triangle, both face forms: `f a b c` and `f a//an b//bn c//cn`
+_OBJ = """# synthetic mesh
+v 0 0 0
+v 1 0 0
+v 1 1 0
+v 0 1 0
+v 0.5 0.5 1
+vn 0 0 1
+vn 0 0.6 0.8
+vn 0.6 0 0.8
+
+f 1 2 3
+f 1//1 3//2 4//3
+f 2//2 5//3 3//1
+f x 1 2
+"""
+
+
+@pytest.mark.parametrize("kw", [
+    {}, dict(flip=True), dict(scale=2000.0, translate=(195, -20, 280), flip=True),
+    dict(scale=250.0, rot_y_deg=30.0, translate=(393, 50, 108))])
+def test_read_obj_equals_jax(tmp_path, kw):
+    from miniraytracer_tpu.scene import obj_loader as jobj
+    from miniraytracer_tpu_torch.scene import obj_loader as tobj
+
+    path = tmp_path / "mesh.obj"
+    path.write_text(_OBJ)
+    a, b = jobj.read_obj(str(path), **kw), tobj.read_obj(str(path), **kw)
+    assert len(b) == 6 and b[0].shape == (3, 3)  # the face that does not parse is skipped
+    for x, y in zip(a, b):
+        assert y.dtype == np.float32
+        np.testing.assert_array_equal(y, x)
+    empty = tmp_path / "empty.obj"
+    empty.write_text("v 0 0 0\n")
+    assert all(x.shape == (0, 3) for x in tobj.read_obj(str(empty)))
+
+
+def _mesh_dir(tmp_path, n_quads):
+    """An asset directory with the triangles scene's two mesh files: a strip
+    of `n_quads` quads each (vertex normals in one, none in the other)."""
+    lines = [f"v {i * 0.01} {y} 0" for i in range(n_quads + 1) for y in (0.0, 0.05)]
+    faces = [f"f {2 * i + 1} {2 * i + 2} {2 * i + 3}\nf {2 * i + 2} {2 * i + 4} {2 * i + 3}"
+             for i in range(n_quads)]
+    (tmp_path / "obj").mkdir()
+    (tmp_path / "obj" / "Teapot3_no_vt.obj").write_text("\n".join(lines + faces))
+    with_n = [ln.replace(" ", "//1 ").replace("f//1 ", "f ") + "//1" for ln in faces]
+    (tmp_path / "obj" / "bunny.obj").write_text("\n".join(lines + ["vn 0 0 1"] + with_n))
+    return tmp_path
+
+
+@pytest.mark.parametrize("n_quads", [4, 300])
+def test_triangles_with_meshes_equals_jax(tmp_path, monkeypatch, n_quads):
+    """With mesh files the triangles scene carries them: 16 triangles stay in
+    the fused class; 1200 reach the triangle sweeps, whose clustered tiers
+    (B9-B11) are not ported, and every renderer says so."""
+    import miniraytracer_tpu_torch as mrt
+    from miniraytracer_tpu_torch.ops import intersect as tix
+
+    assets = _mesh_dir(tmp_path, n_quads)
+    monkeypatch.setenv("MRT_ASSETS", str(assets))
+    monkeypatch.setattr(jscenes, "ASSET_DIR", str(assets))
+    js, ts = jscenes.triangles(1.0), tscenes.triangles(1.0)
+    _assert_same(_leaves(js), _leaves(ts))
+    assert ts.n_tris == 4 * n_quads
+    if n_quads == 4:
+        assert tbounce.can_fuse(ts) and mrt.pick_renderer(ts) == "fused"
+        return
+    with pytest.raises(NotImplementedError, match="B9-B11"):
+        tix.make_accel(ts)
+    with pytest.raises(NotImplementedError, match="B9"):
+        mrt.render(ts, 4, 4, 1, device="cpu")
 
 
 def test_sample_offsets_equal_jax():

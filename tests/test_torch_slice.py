@@ -44,10 +44,10 @@ def test_pick_renderer_raises_outside_fused_class():
     scene = b.build()
     assert not bounce.can_fuse(scene) and not hybrid.can_hybrid(scene)
     # the rule's answer is the work queue, with its shading in tensor
-    # operations: that half of it is not ported, and `render` says so
+    # operations (the sphere light's pdf reads the full sphere table)
     assert mrt.pick_renderer(scene) == "workqueue"
-    with pytest.raises(NotImplementedError, match="_shade_and_advance"):
-        mrt.render(scene, 8, 8, 1, device="cpu")
+    frame, stats = mrt.render(scene, 8, 8, 1, max_bounces=3, device="cpu")
+    assert stats["renderer"] == "workqueue" and torch.isfinite(frame).all()
     with pytest.raises(ValueError, match="hybrid class"):
         mrt.render_workqueue(scene, 8, 8, 1, fused_shade=True)
     pix = torch.arange(64, dtype=torch.int32)
@@ -163,6 +163,22 @@ def test_workqueue_render_on_cuda_launches_kernels_and_matches_plain(name):
     assert hybrid.shade_launches == before[0] + steps
     assert flash.gated_launches == before[1] + (steps if name == "book2_final" else 0)
     assert flash.streamed_launches == before[2] + (steps if name == "probe_4200" else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["random_spheres_2", "book2_final"])
+def test_eager_queue_on_cuda_launches_kernels_and_matches_plain(name):
+    """The work queue with its shading in tensor operations on the card: the
+    sphere sweep and the turbulence kernel B6 launch once a queue step, and
+    steps, claims, rays and frame equal the plain run's
+    (`chip_smoke.compare_eager_queue`)."""
+    _need_cuda()
+    import chip_smoke
+    from miniraytracer_tpu_torch.models import integrator
+    from miniraytracer_tpu_torch.ops import noise
+
+    scene = getattr(mrt.scenes, name)(1.0).to("cuda")
+    chip_smoke.compare_eager_queue(name, integrator, flash, noise, scene, 32, 2, 8, 300)
 
 
 # ---------------------------------------------------------------------------

@@ -437,8 +437,15 @@ def test_workqueue_clamps_each_sample_and_drops_nothing_finite():
     assert torch.equal(c, c2) and int(c.sum()) == 144 * 4
     lum = lambda x: 0.212655 * x[:, 0] + 0.715158 * x[:, 1] + 0.072187 * x[:, 2]
     assert float(lum(b).max()) <= 4 * 0.05 * (1 + 1e-5) and float(lum(a).max()) > 4 * 0.05
-    with pytest.raises(NotImplementedError, match="_shade_and_advance"):
-        tinteg.render_workqueue_pixels(ts, 144, 144, 4, 1e9, fused_shade=False, **kw)
+    # the shading in tensor operations (`_shade_and_advance` over `make_accel`)
+    # runs the same physics in the same order as the shade step's plain
+    # version: the same steps, claims, rays and frame
+    stats, stats_e = {}, {}
+    a2, c2, r2 = tinteg.render_workqueue_pixels(ts, 144, 144, 4, 1e9, stats=stats, **kw)
+    e, ce, re_ = tinteg.render_workqueue_pixels(ts, 144, 144, 4, 1e9, fused_shade=False,
+                                                stats=stats_e, **kw)
+    assert stats == stats_e and int(re_) == int(r2) and torch.equal(ce, c2)
+    assert torch.equal(e, a2)
 
 
 @pytest.mark.parametrize("name,size,spp,bounces", [("earth", 14, 4, 8),
