@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `miniraytracer_tpu_torch/csrc` and drives
-the four ported paths on the card:
+the ported paths on the card:
 
 - the forward render: kernel B1 (`bounce.cu`) against its plain PyTorch
   version and against the real reference renderer's frames, then the Cornell
@@ -35,6 +35,19 @@ the four ported paths on the card:
   plain ones, random_spheres_2 against the reference renderer's frame, then
   random_spheres_2 (487 spheres, Perlin, an earth map) at 500x500, 64 spp, 32
   bounces through `render`.
+
+- the triangle tiers: kernels B10, B11 and B9 (`flash.cu`, the clustered
+  triangle sweeps, one cluster loop with B12 and B13) against their plain
+  versions and against the dense sweep B7 on rays of real queue steps of the
+  triangles scene (with stand-in meshes of the reference's size, 11,264
+  triangles, written by `scenes.write_stand_in_meshes`: the reference's OBJ
+  files are not in the repository), whole queue renders against the plain
+  ones, then the triangles scene at 500x500, 64 spp, 32 bounces through
+  `render`, and a 49,152-triangle scene, past the JAX package's resident
+  budget, for B11;
+- the reference renderer's 64-spp frames: the work queue at 100x100, 64 spp,
+  16 bounces on the five scenes that need no asset file, held to the bounds
+  of tests/test_reference_parity.py.
 
 Each main path is driven with the kernels' launch counts set to 0 just before
 and read just after. Every phase raises on failure, so the exit code is
@@ -157,6 +170,7 @@ def compare(name, kernel_out, plain_out):
 
 def main() -> None:
     # 1. the card
+    t_start = time.perf_counter()
     check(torch.cuda.is_available(), "no CUDA device: this script needs a GPU")
     card_line = card()
     print(card_line)
@@ -269,11 +283,20 @@ def main() -> None:
         "library_ms": None,
     }]
 
-    kernel_rows += train_phases(mrt, bounce, bounce_ad, dev, card_line)
-    kernel_rows += hybrid_phases(mrt, bounce, flash, hybrid, dev, card_line, refs)
-    kernel_rows += queue_phases(mrt, bounce, flash, hybrid, dev, card_line, refs,
-                                kernel_rows[-1])
-    kernel_rows += eager_phases(mrt, flash, hybrid, noise, dev, card_line, refs, kernel_rows)
+    print(f"phases 1-5 took {time.perf_counter() - t_start:.1f} s")
+    for name, phases in (
+            ("6-7", lambda: train_phases(mrt, bounce, bounce_ad, dev, card_line)),
+            ("8-12", lambda: hybrid_phases(mrt, bounce, flash, hybrid, dev, card_line, refs)),
+            ("13-17", lambda: queue_phases(mrt, bounce, flash, hybrid, dev, card_line, refs,
+                                           kernel_rows[-1])),
+            ("18-22", lambda: eager_phases(mrt, flash, hybrid, noise, dev, card_line, refs,
+                                           kernel_rows)),
+            ("23-26", lambda: triangle_phases(mrt, bounce, flash, hybrid, dev, card_line)),
+            ("27", lambda: reference_gate(mrt, dev, refs))):
+        t0 = time.perf_counter()
+        kernel_rows += phases()
+        print(f"phase{'s' if '-' in name else ''} {name} took {time.perf_counter() - t0:.1f} s")
+    print(f"all phases took {time.perf_counter() - t_start:.1f} s")
 
     print(card_line)
     print(json.dumps({"kernels": kernel_rows}))
@@ -1334,20 +1357,21 @@ def turbulence_points(integrator, noise, scene, size, step):
     return calls[step]
 
 
-def compare_eager_queue(name, integrator, flash, noise, scene, size, sq, bounces, lanes):
+def compare_eager_queue(name, integrator, scene, size, sq, bounces, lanes, counters):
     """A whole work-queue render with its shading in tensor operations through
-    the kernels against their plain versions. B8, B13, B12 and B6 equal their
-    plain versions to the bit, so steps, claims, sample counts and rays must
-    be EQUAL and every pixel within 1e-6*(1+|plain|) (the merge adds with
-    float atomics, in another order on every run). Each kernel of the scene
-    launches once a step."""
+    the kernels against their plain versions. B6, B8, B10, B12 and B13 equal
+    their plain versions to the bit, so steps, claims, sample counts and rays
+    must be EQUAL and every pixel within 1e-6*(1+|plain|) (the merge adds with
+    float atomics, in another order on every run). `counters` maps a label
+    to a function reading a launch count; each must grow by one a step in
+    the kernels' run and not at all in the plain one."""
     kw = dict(width=size, height=size, max_bounces=bounces, spp_sq=sq, fused_shade=False)
-    counters = ("sphere_launches", "gated_launches", "streamed_launches")
-    before = [getattr(flash, c) for c in counters] + [noise.launches]
+    read = lambda: [count() for count in counters.values()]
+    before = read()
     sk, sp = {}, {}
     ak, ck, rk = integrator.render_workqueue_pixels(scene, size * size, lanes, sq * sq, 1000.0,
                                                     stats=sk, **kw)
-    launched = [getattr(flash, c) for c in counters] + [noise.launches]
+    launched = read()
     ap, cp, rp = integrator.render_workqueue_pixels(scene, size * size, lanes, sq * sq, 1000.0,
                                                     stats=sp, plain=True, **kw)
     fk, fp = ak / ck.clamp_min(1)[:, None], ap / cp.clamp_min(1)[:, None]
@@ -1355,16 +1379,23 @@ def compare_eager_queue(name, integrator, flash, noise, scene, size, sq, bounces
     worst = float((err / (1 + fp.abs())).max())
     steps = [n - b for n, b in zip(launched, before)]
     print(f"  {name}: steps {sk['steps']} (plain {sp['steps']}), claims {sk['claimed']} "
-          f"({sp['claimed']}), rays {int(rk)} ({int(rp)}); launches a step B8/B13/B12/B6 "
-          f"{[n / sk['steps'] for n in steps]}; max abs err {float(err.max()):.3g}, over "
-          f"1+|plain| {worst:.3g}")
+          f"({sp['claimed']}), rays {int(rk)} ({int(rp)}); launches a step "
+          f"{'/'.join(counters)} {[n / sk['steps'] for n in steps]}; max abs err "
+          f"{float(err.max()):.3g}, over 1+|plain| {worst:.3g}")
     check(sk == sp and int(rk) == int(rp) and torch.equal(ck, cp),
           f"{name}: steps, claims, rays or sample counts differ from plain")
     check(int(ck.sum()) == size * size * sq * sq, f"{name}: samples were lost")
     check(torch.isfinite(fk).all().item() and worst <= 1e-6, f"{name}: frame differs from plain")
-    check(steps[3] == sk["steps"] and sum(steps[:3]) == sk["steps"],
-          f"{name}: B6 or the sphere sweep did not launch once a step")
+    check(all(n == sk["steps"] for n in steps) and read() == launched,
+          f"{name}: {'/'.join(counters)} did not launch once a step")
     return float(err.max())
+
+
+def sphere_counters(flash, noise):
+    """The launch counts of the eager queue's kernels on a sphere scene: the
+    sphere sweep (whichever tier) and the turbulence."""
+    return {"B8+B13+B12": lambda: flash.sphere_launches + flash.gated_launches
+            + flash.streamed_launches, "B6": lambda: noise.launches}
 
 
 def eager_phases(mrt, flash, hybrid, noise, dev, card_line, refs, rows, size=500, spp=64,
@@ -1409,7 +1440,8 @@ def eager_phases(mrt, flash, hybrid, noise, dev, card_line, refs, rows, size=500
           f"{small}x{small}, 4 spp, 8 bounces, 1000 lanes")
     book2 = mrt.scenes.book2_final(1.0).to(dev)
     for name, scene in (("random_spheres_2", rs2), ("book2_final", book2)):
-        compare_eager_queue(name, integrator, flash, noise, scene, small, 2, 8, 1000)
+        compare_eager_queue(name, integrator, scene, small, 2, 8, 1000,
+                            sphere_counters(flash, noise))
 
     # 20. the plain wavefront on the card: a Perlin scene through B6, kernels
     # vs plain; a fast_perlin scene through render()
@@ -1500,6 +1532,302 @@ def eager_phases(mrt, flash, hybrid, noise, dev, card_line, refs, rows, size=500
         "profile_spp": profile_spp, "profile_device_busy_ms": busy,
         "profile_b6_device_ms": named["turbulence_kernel"],
     }]
+
+
+# ---------------------------------------------------------------------------
+# The triangle tiers: kernels B10, B11 and B9 (flash.cu), and the triangles
+# scene through the work queue
+# ---------------------------------------------------------------------------
+
+
+def triangles_scene(mrt):
+    """The triangles scene with stand-in meshes of the reference's size
+    (`scenes.write_stand_in_meshes`, 11,264 triangles), built with
+    MRT_ASSETS naming a temporary directory for that call only."""
+    import tempfile
+
+    old = os.environ.get("MRT_ASSETS")
+    with tempfile.TemporaryDirectory() as assets:
+        mrt.scenes.write_stand_in_meshes(assets)
+        os.environ["MRT_ASSETS"] = assets
+        try:
+            return mrt.scenes.triangles(1.0)
+        finally:
+            if old is None:
+                del os.environ["MRT_ASSETS"]
+            else:
+                os.environ["MRT_ASSETS"] = old
+
+
+def compare_tri_clustered(where, flash, cull, coeffs, ro, rd, inside, alive, seed, tmin):
+    """B10, B11 and B9 (rays sorted and not) on the same rays against their
+    plain versions (t and index EQUAL on every ray), unseeded and from the
+    main path's seed (the nearest rect; 0 on a dead lane), and against the
+    dense kernel B7: the hit sets agree but for rays that graze a cluster's
+    box (at most 1 in 10,000, and there the clustered t is the larger), t is
+    equal to the bit where both hit, the winners agree where the two t are
+    equal (else a tie across clusters); from the seed, t is the dense t where
+    that is nearer and the seed, with index 0, elsewhere. Dead lanes miss.
+    Returns the max |t - plain| over the kernels (0 when equal)."""
+    args = (ro, rd, inside, tmin)
+    tp, ip = flash.flash_tri_hit_resident_plain(cull, *args)
+    tu, iu = flash.flash_tri_hit_culled_plain(cull, *args, sort_rays=False)
+    tsp, isp = flash.flash_tri_hit_resident_plain(cull, *args, seed)
+    err = 0.0
+    for name, (t, i), (t0, i0) in (
+            ("B10", flash.flash_tri_hit_resident(cull, *args), (tp, ip)),
+            ("B11", flash.flash_tri_hit_streamed(cull, *args), (tp, ip)),
+            ("B9", flash.flash_tri_hit_culled(cull, *args), (tp, ip)),
+            ("B9 unsorted", flash.flash_tri_hit_culled(cull, *args, sort_rays=False), (tu, iu)),
+            ("seeded B10", flash.flash_tri_hit_resident(cull, *args, seed), (tsp, isp)),
+            ("seeded B11", flash.flash_tri_hit_streamed(cull, *args, seed), (tsp, isp)),
+            ("seeded B9", flash.flash_tri_hit_culled(cull, *args, seed), (tsp, isp))):
+        d = torch.where(t == t0, torch.zeros_like(t), (t - t0).abs())
+        err = max(err, float(torch.where(i == i0, d, float("inf")).max()))
+        check(torch.equal(t, t0) and torch.equal(i, i0), f"{where}: {name} differs from plain")
+    td, idd = flash.flash_tri_hit(coeffs, *args)
+    hit, hit_d = tp < 3e38, td < 3e38
+    off = tp != td
+    check(float(off.float().mean()) <= 1e-4 and bool((tp[off] > td[off]).all()),
+          f"{where}: the clustered sweeps differ from the dense sweep on {int(off.sum())} rays")
+    both = hit & hit_d
+    same = float((ip[both & ~off] == idd[both & ~off]).float().mean())
+    check(same >= 0.999, f"{where}: winners agree with dense on only {same:.5f} of the hits")
+    check(torch.equal(tu, tp), f"{where}: the visiting order changed t")
+    check(int(hit.sum()) > 0 and not bool(hit[~alive].any()) and not bool(ip[~alive].any()),
+          f"{where}: no hits, or a dead lane hit something")
+    nearer = td < seed
+    check(torch.equal(tsp[nearer], td[nearer]) and torch.equal(tsp[~nearer], seed[~nearer])
+          and not bool(isp[~nearer].any()), f"{where}: the seed is not kept exactly")
+    print(f"  {where}: {tp.numel()} rays ({int(alive.sum())} alive, "
+          f"{int((inside[alive] > 0).sum())} inside a medium), {int(hit.sum())} hits (dense "
+          f"{int(hit_d.sum())}); B10, B11, B9 and B9 unsorted equal plain on every ray, seeded "
+          f"too; {int(off.sum())} rays differ from the dense sweep; winner equal to dense on "
+          f"{same:.6f} of the common hits (the rest tie across clusters); max |dt| 0 where "
+          f"both hit; the seed (the nearest rect) kept on {int((~nearer & alive).sum())} lanes, "
+          f"the triangle nearer on {int((nearer & alive).sum())}")
+    return err
+
+
+def triangle_phases(mrt, bounce, flash, hybrid, dev, card_line, size=500, spp=64, bounces=32,
+                    small=64, profile_spp=8, late_step=40):
+    """Phases 23 to 26: the clustered triangle sweeps and the triangles
+    scene. Returns the rows of B10, B11 and B9 in the result line."""
+    from miniraytracer_tpu_torch.models import integrator
+    from miniraytracer_tpu_torch.ops import intersect as ix
+    from miniraytracer_tpu_torch.ops.vecmath import V3
+
+    scene = triangles_scene(mrt).to(dev)
+    cull = flash.scene_tri_cull(scene)
+    coeffs = flash.scene_tri_coefficients(scene)
+    nc = cull[1].shape[1]
+    block = cull[0][0].shape[0] // nc
+    check(scene.n_tris == 11264 and flash.resident_ok(cull), "the stand-in meshes")
+    lanes = integrator.wq_auto_lanes(scene, size * size)
+
+    # 23. B10/B11/B9 vs plain and vs the dense B7 on rays of queue steps
+    # 4 spp: the claims run out after some 30 steps, so that the late step
+    # has dead lanes
+    calls = queue_snapshots(integrator, hybrid, scene, size, size, 2, bounces, lanes)
+    steps_at = (2, min(late_step, len(calls) - 4))
+    print(f"phase 23: clustered triangle sweeps vs plain PyTorch and vs the dense sweep B7, on "
+          f"rays of queue steps {steps_at} of {len(calls)} of the triangles scene at "
+          f"{size}x{size}, 4 spp ({scene.n_tris} stand-in triangles in {nc} clusters of {block})")
+    err, timed = 0.0, None
+    for t in steps_at:
+        _, fstate, inside, _, _ = calls[t]
+        ro, rd, time_, inside, alive = snapshot_rays(hybrid, fstate, inside)
+        check(t < 3 or bool((~alive).any()), f"step {t} has no dead lane")
+        # the main path's seed: the nearest rect (a t-only sweep of the real
+        # rays); a dead lane's seed is 0
+        real = ix.Rays(ro=V3(*fstate[hybrid.SH_RO:hybrid.SH_RO + 3]),
+                       rd=V3(*fstate[hybrid.SH_RD:hybrid.SH_RD + 3]), time=time_, inside=inside)
+        inf = torch.full_like(time_, 3.0e38)
+        t_r, _ = ix._chunked_min(lambda s, c: ix.rect_ts(scene, real, s, c, bounce.TMIN, inf),
+                                 scene.n_rects, time_.numel(), dev)
+        seed = torch.where(alive, t_r, 0.0)
+        err = max(err, compare_tri_clustered(f"step {t}", flash, cull, coeffs, ro, rd, inside,
+                                             alive, seed, bounce.TMIN))
+        if t == steps_at[0]:
+            timed = (ro, rd, inside, alive, seed)
+    del calls
+    ro, rd, inside, alive, seed = timed
+    n, n_live = alive.numel(), int(alive.sum())
+    args = (cull, ro, rd, inside, bounce.TMIN)
+    dense_ms = cuda_ms(lambda: flash.flash_tri_hit(coeffs, ro, rd, inside, bounce.TMIN), 3)
+    rows = {}
+    for label, kernel, plain, seeded in (
+            ("flash_tri_hit_resident", flash.flash_tri_hit_resident,
+             flash.flash_tri_hit_resident_plain, True),
+            ("flash_tri_hit_streamed", flash.flash_tri_hit_streamed,
+             flash.flash_tri_hit_streamed_plain, True),
+            ("flash_tri_hit_culled", flash.flash_tri_hit_culled,
+             flash.flash_tri_hit_culled_plain, False)):
+        extra = (seed,) if seeded else ()
+        k_ms, p_ms = in_turns(lambda: kernel(*args, *extra), lambda: plain(*args, *extra))
+        work = {}
+        plain(*args, *extra, count=work)
+        ops = work["clusters"] * block * FP32_OPS_PER_TRI_PAIR + n_live * nc * FP32_OPS_PER_SLAB_TEST
+        b_ms, b_by = bound(4 * (n * 11 + sum(t.numel() for t in (*cull[0], cull[1], cull[2],
+                                                                  cull[3]))), ops)
+        print(f"  {label} at {n} rays ({n_live} alive){' from the rect seed' if seeded else ''}: "
+              f"a ray sweeps {work['clusters'] / max(n_live, 1):.2f} of {nc} clusters; kernel "
+              f"{k_ms} ms, plain {p_ms} ms, the dense kernel B7 on the same rays "
+              f"{statistics.median(dense_ms):.3f} ms (runs {dense_ms}), bound {b_ms:.4f} ms by "
+              f"{b_by}; on {card_line}")
+        rows[label] = dict(ms=statistics.mean(k_ms), plain_ms=statistics.mean(p_ms), bound_ms=b_ms,
+                           bound_by=b_by, dense_b7_ms=statistics.median(dense_ms),
+                           clusters_per_ray=work["clusters"] / max(n_live, 1),
+                           pairs_passed=work["clusters"], rays=n, rays_alive=n_live)
+    del timed, args, ro, rd, inside, alive, seed
+    torch.cuda.empty_cache()
+
+    # 24. whole queue renders through the kernels against the plain versions
+    print(f"phase 24: triangles through the work queue, kernels vs plain PyTorch, {small}x{small}, "
+          "4 spp, 8 bounces, 1000 lanes")
+    compare_queue("triangles (shade step B5, outside candidate from B10)", integrator, scene,
+                  small, small, 2, 8, 1000)
+    compare_eager_queue("triangles (shading in tensor operations)", integrator, scene, small,
+                        2, 8, 1000, {"B10": lambda: flash.resident_launches})
+
+    # 25. the main path: render() of the triangles scene at 500x500x64x32
+    print(f"phase 25: mrt.render(triangles with stand-in meshes, {size}, {size}, {spp}, "
+          f"max_bounces={bounces})")
+    host_scene = triangles_scene(mrt)
+    torch.cuda.synchronize()
+    hybrid.shade_launches = hybrid.step_launches = flash.tri_launches = 0
+    flash.resident_launches = flash.tri_streamed_launches = flash.culled_launches = 0
+    frame, stats = mrt.render(host_scene, size, size, spp, max_bounces=bounces)
+    counts = dict(b5=hybrid.shade_launches, b10=flash.resident_launches,
+                  b11=flash.tri_streamed_launches, b9=flash.culled_launches,
+                  b7=flash.tri_launches, b4=hybrid.step_launches)
+    check(stats["renderer"] == "workqueue", f"renderer {stats['renderer']}")
+    check(counts["b5"] == counts["b10"] == stats["steps"] > 0,
+          "the render did not launch B5 and B10 once a queue step")
+    check(counts["b11"] == counts["b9"] == counts["b7"] == counts["b4"] == 0,
+          "the render launched another triangle sweep or step kernel")
+    check(frame.shape == (size, size, 3) and frame.is_cuda, "frame shape/device")
+    check(torch.isfinite(frame).all().item(), "frame not finite")
+    check(stats["claimed"] == stats["lanes"] + size * size * stats["spp"], "claims")
+    print(f"  renderer {stats['renderer']}, {stats['lanes']} lanes, {stats['steps']} queue steps, "
+          f"launches B5 {counts['b5']} B10 {counts['b10']} (B11 {counts['b11']}, B9 {counts['b9']}), "
+          f"rays {stats['rays']}, frame mean {frame.mean(dim=(0, 1)).tolist()}")
+    one = lambda: mrt.render(scene, size, size, spp, max_bounces=bounces)
+    ms = cuda_ms(one, 2)
+    med = statistics.median(ms)
+    print(f"  forward {stats['rays'] / (med / 1e3) / 1e6:.2f} Mrays/s (median of 2 warm renders, "
+          f"{med:.1f} ms each, {med / stats['steps']:.3f} ms a queue step; runs {ms}) on "
+          f"{card_line}")
+    wall, busy, by_name = device_share(
+        lambda: mrt.render(scene, size, size, profile_spp, max_bounces=bounces))
+    named = {"flash_tri_clustered_kernel": [0.0, 0], "shade_step_kernel": [0.0, 0]}
+    for kname, (kms, count) in by_name.items():
+        for key in named:
+            if key in kname:
+                named[key][0] += kms
+                named[key][1] += count
+    sweep_ms, sweep_n = named["flash_tri_clustered_kernel"]
+    rest = busy - sweep_ms - named["shade_step_kernel"][0]
+    n_rest = sum(c for kname, (_, c) in by_name.items() if not any(k in kname for k in named))
+    print(f"  one {profile_spp}-spp frame under torch.profiler: wall {wall:.1f} ms, device busy "
+          f"{busy:.1f} ms (idle share {max(0.0, 1 - busy / wall):.3f}): B10 {sweep_ms:.1f} ms over "
+          f"{sweep_n} launches ({sweep_ms / max(sweep_n, 1):.3f} ms a launch, "
+          f"{sweep_ms / max(busy, 1e-9):.3f} of device time), B5 {named['shade_step_kernel'][0]:.1f} "
+          f"ms, {n_rest} other launches (the ray sort, the rect seed, claiming, merging, camera "
+          f"rays, candidate assembly) {rest:.1f} ms")
+    for kname, (kms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"    {kms:8.2f} ms  {100 * kms / busy:5.1f}%  x{count:<6d} {kname[:90]}")
+
+    # 26. the other two entry points on paths of their own. B9 has no route
+    # in a renderer (the JAX package calls it from its tests and checkup):
+    # it is called as they call it, here on the camera rays of the triangles
+    # frame, against B7. Past the resident budget (more than 40,960
+    # triangles) `render` takes B11, as in the JAX package (here the same
+    # loop).
+    print(f"phase 26: flash_tri_hit_culled on the {size}x{size} camera rays of the triangles "
+          "scene; a 49,152-triangle scene through render() takes B11")
+    from miniraytracer_tpu_torch.models import camera as cam_mod
+    from miniraytracer_tpu_torch.ops import rng as rng_mod
+
+    pix = torch.arange(size * size, dtype=torch.int64, device=dev)
+    zero = torch.zeros_like(pix)
+    ss, tt = bounce.film_coords(pix, zero, size, size, 1)
+    cam = cam_mod.get_rays(scene.camera, ss, tt, rng_mod.ray_key(pix, zero))
+    torch.cuda.synchronize()
+    flash.culled_launches = 0
+    t9, i9 = flash.flash_tri_hit_culled(cull, cam.ro, cam.rd, cam.inside, bounce.TMIN)
+    b9_launches = flash.culled_launches
+    t7, i7 = flash.flash_tri_hit(coeffs, cam.ro, cam.rd, cam.inside, bounce.TMIN)
+    hit9, off9 = t9 < 3e38, t9 != t7
+    check(b9_launches == 1 and int(hit9.sum()) > 0 and float(off9.float().mean()) <= 1e-4
+          and bool((t9[off9] > t7[off9]).all()), "B9 on the camera rays differs from B7")
+    print(f"  B9 launched {b9_launches} time on {pix.numel()} camera rays: {int(hit9.sum())} hits, "
+          f"t equal to B7 on all but {int(off9.sum())} rays, winner equal on "
+          f"{float((i9[hit9 & ~off9] == i7[hit9 & ~off9]).float().mean()):.6f} of the hits")
+    b = mrt.SceneBuilder()
+    b.name = "triangles_49152"
+    b.set_camera([0, 3, 12], [0, 1, 0], [0, 1, 0], 40.0, 1.0, aperture=0.0, focus_dist=10.0,
+                 t0=0.0, t1=0.0)
+    rs = np.random.default_rng(0)
+    p = rs.uniform(-5, 5, (49152, 3)).astype(np.float32)
+    b.triangles_bulk(p, p + rs.uniform(-0.2, 0.2, (49152, 3)), p + rs.uniform(-0.2, 0.2, (49152, 3)),
+                     b.lambertian(b.tex_const([0.5, 0.5, 0.5])))
+    big = b.build()
+    torch.cuda.synchronize()
+    flash.resident_launches = flash.tri_streamed_launches = 0
+    frame, st = mrt.render(big, 64, 64, 4, max_bounces=8)
+    check(st["renderer"] == "workqueue" and flash.tri_streamed_launches == st["steps"] > 0
+          and flash.resident_launches == 0, "the big scene did not launch B11 once a step")
+    check(torch.isfinite(frame).all().item(), "frame not finite")
+    print(f"  {big.n_tris} triangles: {st['steps']} queue steps, B11 launched "
+          f"{flash.tri_streamed_launches} times, rays {st['rays']}")
+    b11_launches = flash.tri_streamed_launches
+
+    common = {"route": "cuda", "source": "miniraytracer_tpu_torch/csrc/flash.cu",
+              "max_abs_err": err, "library_ms": None}
+    return [
+        {"name": "flash_tri_hit_resident", "replaces": "miniraytracer_tpu/ops/flash.py:701",
+         "launches": counts["b10"], **rows["flash_tri_hit_resident"], "frame_ms": med,
+         "frame_steps": stats["steps"], "frame_rays": stats["rays"],
+         "profile_spp": profile_spp, "profile_device_busy_ms": busy,
+         "profile_b10_device_ms": sweep_ms, "profile_wall_ms": wall, **common},
+        {"name": "flash_tri_hit_streamed", "replaces": "miniraytracer_tpu/ops/flash.py:918",
+         "launches": b11_launches, "launches_path": "render of a 49,152-triangle scene",
+         "launches_triangles_frame": counts["b11"], **rows["flash_tri_hit_streamed"], **common},
+        {"name": "flash_tri_hit_culled", "replaces": "miniraytracer_tpu/ops/flash.py:462",
+         "launches": b9_launches, "launches_path": "the entry point on the camera rays",
+         "launches_triangles_frame": counts["b9"], **rows["flash_tri_hit_culled"], **common},
+    ]
+
+
+# ---------------------------------------------------------------------------
+# The reference renderer's 64-spp frames
+# ---------------------------------------------------------------------------
+
+# tests/test_reference_parity.py CASES_64: the JAX package's work queue at the
+# archive's own 64 spp, channel means within these bounds
+PARITY_TOL_64 = {"random_spheres": 0.005, "two_spheres": 0.001, "perlin_spheres": 0.003,
+                 "cornell_box": 0.005, "cornell_smoke": 0.003}
+
+
+def reference_gate(mrt, dev, refs):
+    """Phase 27: `render_workqueue(scene, 100, 100, 64, max_bounces=16)` on
+    the five scenes that need no asset file, channel means against the
+    reference renderer's frames within PARITY_TOL_64. Returns no row."""
+    print("phase 27: work queue vs reference renderer, 100x100, 64 spp, 16 bounces")
+    misses = []
+    for name, tol in PARITY_TOL_64.items():
+        frame, st = mrt.render_workqueue(getattr(mrt.scenes, name)(1.0).to(dev), 100, 100, 64,
+                                         max_bounces=16)
+        ours = frame.cpu().numpy()
+        check(np.isfinite(ours).all(), f"{name}: frame not finite")
+        ref_mean = refs[name].mean(axis=(0, 1))
+        rel = np.abs(ref_mean - ours.reshape(-1, 3).mean(axis=0)) / np.maximum(ref_mean, 1e-6)
+        print(f"  {name}: channel means rel diff {rel.max():.5f} (bound {tol}), {st['rays']} rays")
+        if rel.max() >= tol:
+            misses.append(name)
+    check(not misses, f"reference parity at 64 spp missed on {misses}")
+    return []
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """miniraytracer_tpu_torch — the PyTorch/CUDA port of miniraytracer_tpu.
 
-Five paths are ported. For the fused scene class (cornell_box,
+Six paths are ported. For the fused scene class (cornell_box,
 cornell_smoke, two_spheres, perlin_spheres): the forward path tracer
 (`render`, kernel `csrc/bounce.cu`) and the differentiable train step
 (`make_train_step`, kernels `csrc/bounce_ad.cu`: the scan step and its
@@ -14,8 +14,11 @@ shade kernel of `csrc/hybrid.cu`, lanes claiming (pixel, sample) items from a
 global queue). Where that shade kernel does not fit the scene (random_spheres_2:
 its own materials, an image and Perlin noise), the queue, like the plain
 wavefront `render_wavefront`, runs the bounce in tensor operations, with the
-sweeps of `csrc/flash.cu` and the turbulence kernel of `csrc/noise.cu`. The
-kernels are hand-written CUDA, built with nvcc on first use.
+sweeps of `csrc/flash.cu` and the turbulence kernel of `csrc/noise.cu`. A
+triangle set of 1024 or more (the triangles scene's meshes, about 11,300) is
+swept over Morton clusters by the clustered triangle sweeps of
+`csrc/flash.cu`, in every renderer. The kernels are hand-written CUDA, built
+with nvcc on first use.
 
 The entry points run on the NVIDIA GPU: `device=None` means "cuda", the scene
 is moved there, and with no card the call raises. `device="cpu"` runs the
@@ -30,6 +33,9 @@ Quick start:
     frame, stats = mrt.render(mrt.scenes.random_spheres(1.0), 500, 500, 64)
     frame, stats = mrt.render(mrt.scenes.book2_final(1.0), 500, 500, 64)
     frame, stats = mrt.render(mrt.scenes.random_spheres_2(1.0), 500, 500, 64)
+    # with $MRT_ASSETS/obj/ holding the meshes (or the stand-ins that
+    # mrt.scenes.write_stand_in_meshes writes):
+    frame, stats = mrt.render(mrt.scenes.triangles(1.0), 500, 500, 64)
 
     step = mrt.make_train_step(width=500, height=500, max_bounces=32,
                                spp_step=128)

@@ -36,6 +36,7 @@ static MrtDim3 blockIdx, threadIdx, blockDim, gridDim;
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
+static const cudaError_t cudaErrorInvalidValue = 1;
 static inline cudaError_t cudaGetLastError() { return 0; }
 static inline const char* cudaGetErrorString(cudaError_t) { return "host emulation"; }
 static inline void __syncthreads() {}

@@ -6,12 +6,13 @@ The fused render (`ops/bounce.py`) covers scenes whose tables stay small: at
 most 64 primitives a type, 24 materials, no image texture. The machinery here
 covers the scenes beyond it: random_spheres (~490 spheres, a material each),
 earth (an image texture), book2_final (1006 spheres and 400 boxes), a
-triangle set of 65..1023. Each step, all on the device:
+triangle set of more than 64 (triangles with its meshes: about 11,300). Each
+step, all on the device:
 
 1. the sweeps of `ops/flash.py` (kernels of `csrc/flash.cu`) find, for every
    lane, the nearest hit over the EXTERNAL sets: the sphere set and the
-   triangle set that have more than 64 members (dense up to 511 spheres,
-   clustered beyond); a box set of more than 64 is swept by tensor operations
+   triangle set that have more than 64 members (dense up to 511 spheres and
+   1023 triangles, clustered beyond); a box set of more than 64 is swept by tensor operations
    (`intersect.box_ts`), as in the JAX package;
 2. `_external_candidate` assembles the winner's record (normal, material) with
    plain tensor indexing. In ext-material mode (more materials or textures
@@ -269,19 +270,16 @@ def hybrid_accel(scene: T.SceneData):
     thresholds: "sph" the dense sphere tables (65..511 spheres), "sph_gate"
     or "sph_cull" the Morton clusters of `flash.sph_cull_build` (512..4095
     spheres: the gated sweep; more: the streamed one), "tri" the dense
-    triangle tables (65..1023). An external box set needs no entry. A
-    triangle set too large for the dense tier raises: its kernels are not
-    ported, and a dense sweep is never taken in their place."""
+    triangle tables (65..1023), "tri_cull" the Morton clusters of
+    `flash.tri_cull_build` (1024 or more: the seeded clustered sweep). An
+    external box set needs no entry."""
     ext_sph, ext_tri, _ = _ext_types(scene)
     accel = {}
     if ext_tri:
         if scene.n_tris >= ix.FLASH_CULL_MIN_TRIS:
-            raise NotImplementedError(
-                f"scene {scene.name!r} has {scene.n_tris} triangles: the JAX "
-                "package sweeps them with miniraytracer_tpu.ops.flash."
-                "flash_tri_hit_resident / flash_tri_hit_streamed (kernels "
-                "B10/B11, and B9 as their gated form), which are not ported yet")
-        accel["tri"] = flash.scene_tri_coefficients(scene)
+            accel["tri_cull"] = flash.scene_tri_cull(scene)
+        else:
+            accel["tri"] = flash.scene_tri_coefficients(scene)
     if ext_sph:
         coeffs = flash.sphere_coefficients(scene)
         if scene.n_spheres < ix.FLASH_GATE_MIN_SPHERES:
@@ -337,6 +335,20 @@ def _external_candidate(scene, accel, rays: ix.Rays, alive, tmin, ptab=None,
     t_t, i_t = inf, izero
     if "tri" in accel:
         t_t, i_t = sweep("flash_tri_hit")(accel["tri"], nan3, nand, rays.inside, tmin)
+    elif "tri_cull" in accel:
+        # seeded with the sphere winner and the nearest rect (a t-only sweep
+        # of the real rays), so that clusters behind either are pruned; the
+        # step kernel finds the rect again. A dead lane's seed is 0. Where
+        # the seed comes back no triangle was nearer: a miss here.
+        seed = t_s
+        if scene.n_rects:
+            t_r, _ = ix._chunked_min(lambda s, c: ix.rect_ts(scene, rays, s, c, tmin, inf),
+                                     scene.n_rects, n, rays.time.device)
+            seed = torch.minimum(seed, t_r)
+        seed = torch.where(alive, seed, 0.0)
+        t_t, i_t = flash.tri_hit_culled_auto(accel["tri_cull"], nan3, nand, rays.inside, tmin,
+                                             seed, plain=plain)
+        t_t = torch.where(t_t < seed, t_t, INF)
 
     # a big box set: swept by tensor operations on the real rays (a NaN ray
     # would poison the minimum), dead lanes and misses masked afterwards
@@ -363,7 +375,7 @@ def _external_candidate(scene, accel, rays: ix.Rays, alive, tmin, ptab=None,
     records = []
     if sph_key:
         records.append((is_s, i_s, ix.sphere_record))
-    if "tri" in accel:
+    if "tri" in accel or "tri_cull" in accel:
         records.append((is_t, i_t, ix.tri_record))
     if ext_box:
         records.append((is_b, i_b, ix.box_record))

@@ -400,13 +400,16 @@ def make_accel(scene: T.SceneData, differentiable: bool = False) -> dict:
     """The kernels' operands for one trace, built once outside the bounce
     loop, by the JAX package's thresholds (`intersect.make_accel` as it runs
     on its accelerator): "tri", the dense triangle tables (B7), for 64..1023
-    triangles; "sph", the dense sphere tables (B8), for 64..511 spheres;
-    "sph_gate" / "sph_cull", the Morton clusters of `flash.sph_cull_build`
-    for the gated (B13, 512..4095 spheres) or the streamed sweep (B12, more);
-    "perlin", the turbulence tables of `noise.noise_tables` (B6), for a scene
-    with Perlin noise that is not `fast_perlin`. Empty for a scene that needs
-    none. A triangle set of 1024 or more, and `differentiable=True`, raise:
-    their kernels are not ported, and nothing is swept in their place."""
+    triangles; "tri_cull", the Morton clusters of `flash.tri_cull_build` for
+    1024 or more (the seeded clustered sweep, B10, or B11 past
+    `flash.resident_ok`); "sph", the dense sphere tables (B8), for 64..511
+    spheres; "sph_gate" / "sph_cull", the Morton clusters of
+    `flash.sph_cull_build` for the gated (B13, 512..4095 spheres) or the
+    streamed sweep (B12, more); "perlin", the turbulence tables of
+    `noise.noise_tables` (B6), for a scene with Perlin noise that is not
+    `fast_perlin`. Empty for a scene that needs none. `differentiable=True`
+    raises: the sweeps' custom VJPs are not ported, and nothing is swept in
+    their place."""
     from miniraytracer_tpu_torch.ops import flash, noise
 
     if differentiable:
@@ -414,12 +417,9 @@ def make_accel(scene: T.SceneData, differentiable: bool = False) -> dict:
             "make_accel(differentiable=True): the custom-VJP sweeps of the AD "
             "paths outside the fused class are not ported yet (ROADMAP.md A11)")
     accel = {}
-    if scene.n_tris >= FLASH_MIN_TRIS:
-        if scene.n_tris >= FLASH_CULL_MIN_TRIS:
-            raise NotImplementedError(
-                f"scene {scene.name!r} has {scene.n_tris} triangles: the JAX package "
-                "sweeps them over Morton clusters (miniraytracer_tpu.ops.flash."
-                "tri_cull_build and kernels B9-B11), which are not ported yet")
+    if scene.n_tris >= FLASH_CULL_MIN_TRIS:
+        accel["tri_cull"] = flash.scene_tri_cull(scene)
+    elif scene.n_tris >= FLASH_MIN_TRIS:
         accel["tri"] = flash.scene_tri_coefficients(scene)
     if scene.n_spheres >= FLASH_MIN_SPHERES:
         coeffs = flash.sphere_coefficients(scene)
@@ -448,7 +448,9 @@ def scene_hit(scene: T.SceneData, rays: Rays, u_volume=None, tmin=TMIN, accel=No
     triangle sets are swept by the kernels (their plain versions for CPU
     tensors or with `plain`), the rest by tensor operations. On a tie the
     sphere wins over the rect, the rect over the triangle, the triangle over
-    the box. A miss lane's record is sanitised: normal (1, 0, 0), u = v = 0."""
+    the box: so the clustered triangle sweep may start from the sphere and
+    rect winner and return that seed where no triangle is nearer. A miss
+    lane's record is sanitised: normal (1, 0, 0), u = v = 0."""
     from miniraytracer_tpu_torch.ops import flash
 
     n = rays.time.shape[0]
@@ -467,6 +469,10 @@ def scene_hit(scene: T.SceneData, rays: Rays, u_volume=None, tmin=TMIN, accel=No
                             scene.n_rects, n, dev)
     if "tri" in accel:
         t_t, i_t = sweep("flash_tri_hit")(accel["tri"], rays.ro, rays.rd, rays.inside, tmin)
+    elif "tri_cull" in accel:
+        # clusters behind the sphere or rect winner are pruned
+        t_t, i_t = flash.tri_hit_culled_auto(accel["tri_cull"], rays.ro, rays.rd, rays.inside,
+                                             tmin, torch.minimum(t_s, t_r), plain=plain)
     else:
         t_t, i_t = _chunked_min(lambda s, c: tri_ts(scene, rays, s, c, tmin, tmax0),
                                 scene.n_tris, n, dev)

@@ -58,6 +58,8 @@ class SceneBuilder:
         self.spheres = []  # (c0, c1, t0, t1, radius, moving, mat)
         self.rects = []  # (ei, ej, ek, i0, i1, j0, j1, k, sign, mat)
         self.tris = []  # (m, u, v, mn, un, vn, mat)
+        self.sphere_bulk = []  # vectorized blocks: 7 column arrays each
+        self.tri_bulk = []  # vectorized blocks: 7 column arrays each
         self.boxes = []  # (lo, hi, (sin, cos), off, mat)
         self.volumes = []  # (btype, bparams[12], density, mat)
         self.materials = []  # (type, tex, param)
@@ -119,6 +121,21 @@ class SceneBuilder:
         self.spheres.append((c0, c1, _F(t0), _F(t1), _F(radius), _F(1.0 if moving else 0.0), int(mat)))
         return (T.PRIM_SPHERE, len(self.spheres) - 1)
 
+    def spheres_bulk(self, centers, radii, mats, centers1=None, t0=0.0, t1=0.0):
+        """Many spheres at once: centers (n,3), radii (n,), mats one handle
+        or (n,). The way to build scenes of thousands of spheres (the
+        reference's random_scene scaling table, scene.cpp:109-113). Bulk
+        spheres come after all per-call spheres at build() and cannot be
+        light handles."""
+        c0 = np.asarray(centers, _F).reshape(-1, 3)
+        n = c0.shape[0]
+        r = np.broadcast_to(np.asarray(radii, _F), (n,)).copy()
+        moving = centers1 is not None and (t1 - t0) > np.finfo(_F).eps
+        c1 = np.asarray(centers1, _F).reshape(-1, 3) if centers1 is not None else c0
+        m = np.broadcast_to(np.asarray(mats, np.int32), (n,)).copy()
+        self.sphere_bulk.append((c0, c1, np.full(n, t0, _F), np.full(n, t1, _F), r,
+                                 np.full(n, 1.0 if moving else 0.0, _F), m))
+
     def _rect(self, iax, jax_, kax, i0, i1, j0, j1, k, mat):
         sign = 1.0
         if i0 > i1:
@@ -151,6 +168,24 @@ class SceneBuilder:
         self.tris.append((a, u, v, np.asarray(an, _F), np.asarray(bn, _F), np.asarray(cn, _F), int(mat)))
         return (T.PRIM_TRI, len(self.tris) - 1)
 
+    def triangles_bulk(self, a, b, c, mats, an=None, bn=None, cn=None):
+        """Many triangles at once: vertices a, b, c (n,3), mats one handle or
+        (n,), optional vertex normals (n,3) each (else the flat geometric
+        normal). The way to build meshes of thousands of triangles. Bulk
+        triangles come after all per-call triangles at build() and cannot be
+        light handles."""
+        a, b, c = (np.asarray(x, _F).reshape(-1, 3) for x in (a, b, c))
+        n = a.shape[0]
+        u, v = b - a, c - a
+        if an is None:
+            nrm = np.cross(u, v)
+            ln = np.linalg.norm(nrm, axis=1, keepdims=True)
+            nrm = np.where(ln > 0, nrm / np.maximum(ln, 1e-30), nrm)
+            an = bn = cn = nrm
+        an, bn, cn = (np.asarray(x, _F).reshape(-1, 3) for x in (an, bn, cn))
+        m = np.broadcast_to(np.asarray(mats, np.int32), (n,)).copy()
+        self.tri_bulk.append((a, u, v, an, bn, cn, m))
+
     def box(self, bmin, bmax, mat, rot_y_deg=0.0, offset=(0, 0, 0)):
         """Box as ONE primitive (box.h: 6 outward one-sided rects) with the
         rotate_y + translate wrappers baked as (sin, cos, offset)."""
@@ -159,6 +194,32 @@ class SceneBuilder:
                            np.array([math.sin(r), math.cos(r)], _F),
                            np.asarray(offset, _F), mat))
         return (T.PRIM_BOX, len(self.boxes) - 1)
+
+    def box_tris(self, bmin, bmax, mat, rot_y_deg=0.0, offset=(0, 0, 0)):
+        """The same box as 12 outward-wound triangles (the JAX package keeps
+        this form as the box primitive's equivalence oracle; a triangle
+        admits a ray inside a medium through its back face, where the rect
+        decomposition never does)."""
+        bmin, bmax = np.asarray(bmin, _F), np.asarray(bmax, _F)
+        (x0, y0, z0), (x1, y1, z1) = bmin, bmax
+        R = _roty_fwd(rot_y_deg)
+        off = np.asarray(offset, _F)
+        corner = {(i, j, k): R @ np.asarray([x1 if i else x0, y1 if j else y0, z1 if k else z0],
+                                            _F) + off
+                  for i in (0, 1) for j in (0, 1) for k in (0, 1)}
+        # faces as quads (a, b, c, d), cross(b - a, d - a) outward
+        quads = [
+            ((0, 0, 1), (1, 0, 1), (1, 1, 1), (0, 1, 1)),  # +z
+            ((1, 0, 0), (0, 0, 0), (0, 1, 0), (1, 1, 0)),  # -z
+            ((0, 1, 1), (1, 1, 1), (1, 1, 0), (0, 1, 0)),  # +y
+            ((0, 0, 0), (1, 0, 0), (1, 0, 1), (0, 0, 1)),  # -y
+            ((1, 0, 1), (1, 0, 0), (1, 1, 0), (1, 1, 1)),  # +x
+            ((0, 0, 0), (0, 0, 1), (0, 1, 1), (0, 1, 0)),  # -x
+        ]
+        for qa, qb, qc, qd in quads:
+            self.triangle(corner[qa], corner[qb], corner[qc], mat)
+            self.triangle(corner[qa], corner[qc], corner[qd], mat)
+        return (T.PRIM_TRI, len(self.tris) - 1)
 
     def volume_sphere(self, center, radius, density, albedo_tex):
         mat = self.isotropic(albedo_tex)
@@ -210,6 +271,16 @@ class SceneBuilder:
             active[:n] = True
             return arrs, active
 
+        def merge_bulk(cols, active, any_per_call, blocks):
+            """Per-call rows, then the bulk blocks in order (the pad row of
+            an empty per-call list dropped); every row active."""
+            if not blocks:
+                return cols, active
+            cols = [c if any_per_call else c[:0] for c in cols]
+            merged = [np.concatenate([c] + [np.asarray(blk[k], c.dtype) for blk in blocks])
+                      for k, c in enumerate(cols)]
+            return merged, np.ones(merged[0].shape[0], bool)
+
         v3 = ((3,), _F)
         s_ = ((), _F)
         i_ = ((), np.int32)
@@ -222,10 +293,14 @@ class SceneBuilder:
             self.rects, [v3, v3, v3, s_, s_, s_, s_, s_, s_, i_],
             (np.eye(3)[0], np.eye(3)[1], np.eye(3)[2], 0, -1, 0, -1, 0, 1, 0),
         )
+        (sc0, sc1, st0, st1, srad, smov, smat), sact = merge_bulk(
+            (sc0, sc1, st0, st1, srad, smov, smat), sact, bool(self.spheres), self.sphere_bulk)
         (tm, tu, tv, tmn, tun, tvn, tmat), tact = pack(
             self.tris, [v3, v3, v3, v3, v3, v3, i_],
             (np.zeros(3), np.zeros(3), np.zeros(3), np.zeros(3), np.zeros(3), np.zeros(3), 0),
         )
+        (tm, tu, tv, tmn, tun, tvn, tmat), tact = merge_bulk(
+            (tm, tu, tv, tmn, tun, tvn, tmat), tact, bool(self.tris), self.tri_bulk)
         (blo, bhi, bcs, boff, bmat), bact = pack(
             self.boxes, [v3, v3, ((2,), _F), v3, i_],
             (np.zeros(3), np.full(3, -1.0), np.array([0.0, 1.0]),

@@ -28,7 +28,7 @@ moving spheres) and fed to both packages:
   < 2%, channel means to 5e-3 relative), as tests/test_hybrid.py compares
   its own two renderers;
 - `pick_renderer` against the JAX rule on all nine scene classes, and which
-  primitive counts route where or raise.
+  primitive counts route where.
 """
 
 import dataclasses
@@ -356,19 +356,6 @@ def _many(n_sph=0, n_tri=0, n_box=0, own_materials=False, image=False):
     return b.build()
 
 
-@pytest.mark.parametrize("counts,kernel", [
-    (dict(n_tri=1100), "B10"), (dict(n_tri=1100, n_sph=600), "B11"),
-    (dict(n_tri=2100), "B9"),
-    # the work queue with its shading in tensor operations, and the plain
-    # wavefront, over `intersect.make_accel`
-    (dict(n_tri=1100, n_sph=70, own_materials=True, image=True), "B9-B11"),
-    (dict(n_tri=1100, n_sph=30, own_materials=True, image=True), "tri_cull_build")])
-def test_unported_tiers_raise_and_name_their_kernel(counts, kernel):
-    scene = _many(**counts)
-    with pytest.raises(NotImplementedError, match=kernel):
-        mrt.render(scene, 4, 4, 1, device="cpu")
-
-
 @pytest.mark.parametrize("counts,renderer,accel", [
     (dict(n_sph=600), "hybrid", {"sph_gate"}),
     (dict(n_sph=1500, n_tri=100), "hybrid", {"sph_gate", "tri"}),
@@ -377,13 +364,24 @@ def test_unported_tiers_raise_and_name_their_kernel(counts, kernel):
     (dict(n_sph=4200), "workqueue", {"sph_cull"}),
     (dict(n_sph=70, n_box=400), "workqueue", {"sph"}),
     (dict(n_sph=70, own_materials=True, image=True), "workqueue", {"sph"}),
-    (dict(n_sph=30, own_materials=True), "wavefront", set())])
+    (dict(n_sph=30, own_materials=True), "wavefront", set()),
+    # the clustered triangle tiers (the seeded sweep B10 behind all five):
+    # in the hybrid loop, beside a gated sphere set, in the queue with its
+    # shade step, and in the queue with its shading in tensor operations
+    (dict(n_tri=1100), "hybrid", {"tri_cull"}),
+    (dict(n_tri=1100, n_sph=600), "hybrid", {"tri_cull", "sph_gate"}),
+    (dict(n_tri=2100), "workqueue", {"tri_cull"}),
+    (dict(n_tri=1100, n_sph=70, own_materials=True, image=True), "workqueue",
+     {"tri_cull", "sph"}),
+    (dict(n_tri=1100, n_sph=30, own_materials=True, image=True), "workqueue", {"tri_cull"})])
 def test_ported_tiers_route_and_render(counts, renderer, accel):
-    """The gated (B13) and streamed (B12) sphere tiers, an outside box set,
-    the work queue with its shading in tensor operations and the plain
-    wavefront, which raised before they were ported: `hybrid_accel` (or, for
-    the last two, `intersect.make_accel`) builds the sweeps' entries by the
-    JAX package's thresholds and `render` draws the scene."""
+    """The gated (B13) and streamed (B12) sphere tiers, the clustered
+    triangle tier (B10: 1024 triangles or more), an outside box set, the work
+    queue with its shading in tensor operations and the plain wavefront,
+    which raised before they were ported: `hybrid_accel` (or, where the
+    shading is in tensor operations, `intersect.make_accel`) builds the
+    sweeps' entries by the JAX package's thresholds and `render` draws the
+    scene."""
     from miniraytracer_tpu_torch.ops import intersect as tix
 
     scene = _many(**counts)

@@ -390,17 +390,25 @@ def test_emulated_clustered_sphere_kernels_match_plain(emulated, kind, name):
         assert torch.equal(tks[~nearer], seed[~nearer]) and (iks[~nearer] == 0).all()
 
 
-def _queue_scene(name):
+def _queue_scene(name, tmp_path=None, monkeypatch=None):
     if name == "hybrid_probe":
         return tscenes.hybrid_probe(1.0, 80, 100)
+    if name == "triangles":  # 1,376 stand-in mesh triangles: the clustered sweep
+        monkeypatch.setenv("MRT_ASSETS", tscenes.write_stand_in_meshes(
+            str(tmp_path), bunny_subdiv=3, torus_segments=(8, 6)))
+        scene = tscenes.triangles(1.0)
+        assert scene.n_tris == 1280 + 96
+        return scene
     return getattr(tscenes, name)(1.0)
 
 
-@pytest.mark.parametrize("name", ["earth", "book2_final", "hybrid_probe", "random_spheres"])
-def test_emulated_workqueue_render_matches_plain(emulated, monkeypatch, name):
+@pytest.mark.parametrize("name", ["earth", "book2_final", "hybrid_probe", "random_spheres",
+                                  "triangles"])
+def test_emulated_workqueue_render_matches_plain(emulated, monkeypatch, tmp_path, name):
     """B5 (`hybrid.cu`) in its modes (image texels and no outside set;
     outside spheres through B13 and boxes, an image, volumes; 5 candidate
-    rows; 11 rows), fed by the emulated sweeps: every step of a whole
+    rows; 11 rows; an outside triangle set through B10), fed by the emulated
+    sweeps: every step of a whole
     work-queue render against the plain shade step on the same lanes (`cont`
     and `new_inside` equal, floats within 1e-6 of the row's scale), then the
     whole render through the kernels against the plain one: equal claims and
@@ -408,10 +416,11 @@ def test_emulated_workqueue_render_matches_plain(emulated, monkeypatch, name):
     and exp against PyTorch's, carried through up to 6 bounces) and within
     2e-3 on all (book2's thin fog turns the rounding of one log into 1e-3 of a
     hit point). 324 lanes, with lanes inside glass beyond the first 128."""
-    scene = _queue_scene(name)
+    scene = _queue_scene(name, tmp_path, monkeypatch)
     w = h = 18
     sq, bounces = 2, 6
     kernel_step = thybrid.shade_step
+    resident = tflash.resident_launches
     seen = {"steps": 0, "inside": 0}
 
     def both(cfg, fstate, inside, keys_b, ext):
@@ -433,6 +442,8 @@ def test_emulated_workqueue_render_matches_plain(emulated, monkeypatch, name):
     assert stats_c["steps"] > bounces
     if name != "earth":
         assert seen["inside"] > 0
+    # the triangle sweep launched once a step, the others never
+    assert tflash.resident_launches == resident + (stats_c["steps"] if name == "triangles" else 0)
 
     monkeypatch.setattr(thybrid, "shade_step", kernel_step)
     stats_k, stats_p = {}, {}
@@ -465,21 +476,124 @@ def test_emulated_turbulence_matches_plain(emulated, n, span):
     assert (pts < 0).any() and got.shape == (n,)
 
 
-def test_emulated_eager_queue_matches_plain(emulated):
-    """random_spheres_2 through the work queue with its shading in tensor
-    operations: the sweep B8 and the turbulence B6 (emulated) against their
-    plain versions. Both kernels equal their plain versions to the bit, so
-    the two renders are equal: steps, claims, rays and frames."""
-    scene = tscenes.random_spheres_2(1.0)
-    assert set(tix.make_accel(scene)) == {"sph", "perlin"}
+@pytest.mark.parametrize("name,accel,counters", [
+    ("random_spheres_2", {"sph", "perlin"}, ("sphere_launches", "noise")),
+    ("triangles", {"tri_cull"}, ("resident_launches",))])
+def test_emulated_eager_queue_matches_plain(emulated, monkeypatch, tmp_path, name, accel,
+                                            counters):
+    """The work queue with its shading in tensor operations: random_spheres_2
+    through the sweep B8 and the turbulence B6, the triangles scene (stand-in
+    meshes) through the seeded clustered sweep B10, emulated, against their
+    plain versions. The kernels equal their plain versions to the bit, so the
+    two renders are equal: steps, claims, rays and frames."""
+    scene = _queue_scene(name, tmp_path, monkeypatch)
+    assert set(tix.make_accel(scene)) == accel
+    count = lambda: [tnoise.launches if c == "noise" else getattr(tflash, c) for c in counters]
     kw = dict(width=10, height=10, max_bounces=5, spp_sq=2, fused_shade=False)
-    launches = (tflash.sphere_launches, tnoise.launches)
+    launches = count()
     stats_k, stats_p = {}, {}
     ak, ck, rk = tinteg.render_workqueue_pixels(scene, 100, 100, 4, 1000.0, stats=stats_k, **kw)
-    assert tflash.sphere_launches == launches[0] + stats_k["steps"]
-    assert tnoise.launches == launches[1] + stats_k["steps"]
+    assert count() == [n + stats_k["steps"] for n in launches]
     ap, cp, rp = tinteg.render_workqueue_pixels(scene, 100, 100, 4, 1000.0, stats=stats_p,
                                                 plain=True, **kw)
-    assert tflash.sphere_launches == launches[0] + stats_k["steps"]
+    assert count() == [n + stats_k["steps"] for n in launches]
     assert stats_k == stats_p and int(rk) == int(rp)
     assert torch.equal(ck, cp) and torch.equal(ak, ap)
+    assert int(rk) > 400
+
+
+def _tri_cluster_case(name):
+    """(cull, dense tables, rays) for the clustered triangle sweeps: 1,100
+    scattered triangles (`hybrid_probe`) with rays towards them, a fifth
+    inside a medium, the last 9 NaN; or a flat 16x16 grid of quads on y = 0
+    (every cluster's box of zero thickness in y) under rays going down."""
+    n = 600
+    rs = np.random.default_rng(31)
+    v3 = lambda a: V3(*(torch.as_tensor(np.ascontiguousarray(a[:, k])) for k in range(3)))
+    if name == "flat":
+        k = np.arange(17, dtype=np.float32)
+        gx, gz = np.meshgrid(k, k, indexing="ij")
+        p = np.stack([gx, np.zeros_like(gx), gz], -1)
+        a, b, c, d = p[:-1, :-1], p[1:, :-1], p[1:, 1:], p[:-1, 1:]
+        m = v3(np.concatenate([a, a]).reshape(-1, 3))
+        u = v3(np.concatenate([c - a, d - a]).reshape(-1, 3))
+        v = v3(np.concatenate([b - a, c - a]).reshape(-1, 3))
+        act = torch.ones(512, dtype=torch.bool)
+        coeffs = tflash.tri_coefficients(m, u, v, act)
+        cull = tflash.tri_cull_build(m, u, v, act, coeffs)
+        ro = np.stack([rs.uniform(0.5, 15.5, n), np.full(n, 5.0), rs.uniform(0.5, 15.5, n)], 1)
+        rd = np.tile(np.array([[0.0, -1.0, 0.0]]), (n, 1))
+    else:
+        scene = tscenes.hybrid_probe(1.0, 4, 1100)
+        coeffs = tflash.scene_tri_coefficients(scene)
+        cull = tflash.scene_tri_cull(scene)
+        ro = rs.uniform(-8, 8, (n, 3))
+        ro[:, 1] = np.abs(ro[:, 1]) + 0.3
+        aim = (scene.tri_m + (scene.tri_u + scene.tri_v) / 3).numpy()[rs.integers(0, 1100, n)]
+        rd = aim + rs.normal(0, 0.03, (n, 3)) - ro
+        rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+        ro[-9:], rd[-9:] = np.nan, np.nan
+    inside = torch.as_tensor((rs.random(n) < 0.2).astype(np.int32))
+    return cull, coeffs, (v3(ro.astype(np.float32)), v3(rd.astype(np.float32)), inside,
+                          tbounce.TMIN)
+
+
+@pytest.mark.parametrize("route", ["culled", "culled_unsorted", "resident", "streamed"])
+@pytest.mark.parametrize("name", ["probe", "flat"])
+def test_emulated_clustered_tri_kernels_match_plain(emulated, name, route):
+    """B9, B10 and B11 (`flash.cu`: the cluster loop of the sphere sweeps,
+    generic over the primitive, with the dense sweep's triangle pair test)
+    against their plain versions: t and the index EQUAL on every ray, NaN
+    lanes included, rays in 5 groups of the visiting order; against the dense
+    sweep equal in t (a flat axis-aligned cluster: no hit at all, as in the
+    JAX package). Each launch counts on its own counter. With a finite seed on
+    half of the rays, the seed comes back, with index 0, where no triangle is
+    nearer. Of two equal rows in a cluster the first in the table wins."""
+    cull, coeffs, rays = _tri_cluster_case(name)
+    kernel = getattr(tflash, "flash_tri_hit_" + route.replace("_unsorted", ""))
+    plain = getattr(tflash, "flash_tri_hit_" + route.replace("_unsorted", "") + "_plain")
+    kw = {"sort_rays": False} if route == "culled_unsorted" else {}
+    counter = {"culled": "culled_launches", "resident": "resident_launches",
+               "streamed": "tri_streamed_launches"}[route.replace("_unsorted", "")]
+    before = getattr(tflash, counter)
+    tk, ik = kernel(cull, *rays, **kw)
+    assert getattr(tflash, counter) == before + 1
+    tp, ip = plain(cull, *rays, **kw)
+    assert torch.equal(tk, tp) and torch.equal(ik, ip)
+    assert tk.dtype == torch.float32 and ik.dtype == torch.int32
+    td, idd = tflash.flash_tri_hit_plain(coeffs, *rays)
+    hit = td < 3e38
+    if name == "flat":
+        assert hit.all() and (tp == 3e38).all() and (ip == 0).all()
+        return
+    assert torch.equal(tp, td) and hit.sum() > 300 and not hit[-9:].any()
+    assert (ik[-9:] == 0).all() and (rays[2][hit] > 0).any()
+    assert float((ip[hit] == idd[hit]).float().mean()) > 0.99
+
+    rs = np.random.default_rng(8)
+    seed = torch.where(torch.as_tensor(rs.random(td.shape[0]) < 0.5),
+                       torch.as_tensor(rs.uniform(0.3, 1.2, td.shape[0]).astype(np.float32))
+                       * td.clamp_max(1e4), torch.full_like(td, 3.0e38))
+    tks, iks = kernel(cull, *rays, seed, **kw)
+    tps, ips = plain(cull, *rays, seed, **kw)
+    assert torch.equal(tks, tps) and torch.equal(iks, ips)
+    nearer = td < seed
+    assert nearer.any() and (~nearer & hit).any()
+    assert torch.equal(tks[nearer], td[nearer]) and torch.equal(iks[nearer], ip[nearer])
+    assert torch.equal(tks[~nearer], seed[~nearer]) and (iks[~nearer] == 0).all()
+
+    # a twin: a row later in the winner's cluster gets the winner's coefficients
+    cds, bounds, orig_of, cl_ord = cull
+    block = cds[0].shape[0] // bounds.shape[1]
+    pos_of = torch.empty_like(orig_of)
+    pos_of[orig_of.long()[:1100]] = torch.arange(1100, dtype=torch.int32)
+    first = next(f for f in torch.unique(pos_of[ip[hit].long()]).tolist()
+                 if (f + 1) % block and f + 1 < 1100)
+    twin = tuple(c.clone() for c in cds)
+    for c in twin:
+        c[first + 1] = c[first]
+    tk2, ik2 = kernel((twin, bounds, orig_of, cl_ord), *rays, **kw)
+    tp2, ip2 = plain((twin, bounds, orig_of, cl_ord), *rays, **kw)
+    assert torch.equal(tk2, tp2) and torch.equal(ik2, ip2)
+    on_it = ip == orig_of[first]
+    assert on_it.any() and (ik2[on_it] == orig_of[first]).all()

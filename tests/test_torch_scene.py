@@ -175,9 +175,12 @@ def _mesh_dir(tmp_path, n_quads):
 @pytest.mark.parametrize("n_quads", [4, 300])
 def test_triangles_with_meshes_equals_jax(tmp_path, monkeypatch, n_quads):
     """With mesh files the triangles scene carries them: 16 triangles stay in
-    the fused class; 1200 reach the triangle sweeps, whose clustered tiers
-    (B9-B11) are not ported, and every renderer says so."""
+    the fused class; 1200 reach the clustered triangle sweep (the Morton
+    clusters of `flash.tri_cull_build`, kernel B10 on the card), and `render`
+    draws the scene through the hybrid loop (the work queue from 2000
+    primitives on)."""
     import miniraytracer_tpu_torch as mrt
+    from miniraytracer_tpu_torch.ops import hybrid as thybrid
     from miniraytracer_tpu_torch.ops import intersect as tix
 
     assets = _mesh_dir(tmp_path, n_quads)
@@ -189,10 +192,94 @@ def test_triangles_with_meshes_equals_jax(tmp_path, monkeypatch, n_quads):
     if n_quads == 4:
         assert tbounce.can_fuse(ts) and mrt.pick_renderer(ts) == "fused"
         return
-    with pytest.raises(NotImplementedError, match="B9-B11"):
-        tix.make_accel(ts)
-    with pytest.raises(NotImplementedError, match="B9"):
-        mrt.render(ts, 4, 4, 1, device="cpu")
+    assert set(tix.make_accel(ts)) == set(thybrid.hybrid_accel(ts)) == {"tri_cull"}
+    frame, stats = mrt.render(ts, 4, 4, 1, max_bounces=3, device="cpu")
+    assert stats["renderer"] == "hybrid" and torch.isfinite(frame).all()
+    assert stats["rays"] >= 16
+
+
+@pytest.mark.parametrize("kw", [{}, dict(bunny_subdiv=2, torus_segments=(8, 6))])
+def test_stand_in_meshes_load_alike_in_both_packages(tmp_path, monkeypatch, kw):
+    """`write_stand_in_meshes` writes the triangles scene's two mesh files:
+    both packages' `read_obj` load them to the same triangles, and the
+    scene's transforms put both inside the Cornell box. At the defaults they
+    hold 11,264 triangles, the size of the reference's 11,288, and the rule
+    sends the scene to the work queue with its shade step."""
+    import miniraytracer_tpu_torch as mrt
+    from miniraytracer_tpu.scene import obj_loader as jobj
+    from miniraytracer_tpu_torch.ops import hybrid as thybrid
+    from miniraytracer_tpu_torch.scene import obj_loader as tobj
+
+    assets = tscenes.write_stand_in_meshes(str(tmp_path), **kw)
+    for name, tr in (("bunny.obj", dict(flip=True, scale=2000.0, translate=(195, -20, 280))),
+                     ("Teapot3_no_vt.obj", dict(scale=250.0, rot_y_deg=30.0,
+                                                translate=(393, 50, 108)))):
+        a, b = jobj.read_obj(str(tmp_path / "obj" / name), **tr), tobj.read_obj(
+            str(tmp_path / "obj" / name), **tr)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(y, x)
+        tri = np.stack(b[:3])
+        assert tri.min() > 0 and tri.max() < 555
+        # wound outward once loaded, as the vertex normals say
+        gn = np.cross(b[1] - b[0], b[2] - b[0])
+        assert ((gn * (b[3] + b[4] + b[5])).sum(1) > 0).all()
+    monkeypatch.setenv("MRT_ASSETS", assets)
+    ts = tscenes.triangles(1.0)
+    if not kw:
+        assert ts.n_tris == 5120 + 6144
+        assert mrt.pick_renderer(ts) == "workqueue" and thybrid.prefer_hybrid(ts)
+    else:
+        monkeypatch.setattr(jscenes, "ASSET_DIR", assets)
+        _assert_same(_leaves(jscenes.triangles(1.0)), _leaves(ts))
+        assert ts.n_tris == 320 + 96
+
+
+def test_bulk_builders_equal_jax_and_per_call():
+    """`spheres_bulk`, `triangles_bulk` (appended after the per-call rows at
+    `build`) and `box_tris` build what the JAX package's builder builds, and
+    bulk rows equal per-call ones (tests/test_scaling_scenes.py)."""
+    from miniraytracer_tpu.scene.builder import SceneBuilder as JSceneBuilder
+
+    rs = np.random.default_rng(1)
+    c = rs.uniform(-5, 5, (40, 3)).astype(np.float32)
+    r = rs.uniform(0.1, 1.0, 40).astype(np.float32)
+    a = rs.uniform(-5, 5, (30, 3)).astype(np.float32)
+    b_, c_ = (a + rs.uniform(0.1, 1, (30, 3)).astype(np.float32) for _ in range(2))
+    nrm = rs.normal(size=(30, 3)).astype(np.float32)
+
+    def build(cls, bulk):
+        b = cls()
+        b.set_camera((0, 0, -5), (0, 0, 0), (0, 1, 0), 40, 1.0, 0, 1, 0, 0)
+        m = b.lambertian(b.tex_const([0.5, 0.5, 0.5]))
+        b.sphere((0, 0, 0), 1.0, m)
+        b.triangle(a[0], b_[0], c_[0], m)
+        b.box_tris([-1, 0, -1], [1, 1.5, 1], m, rot_y_deg=18.0, offset=(0.5, 0, 0.5))
+        if bulk:
+            b.spheres_bulk(c, r, m)
+            b.spheres_bulk(c[:2], 0.2, m, centers1=c[:2] + [0, 0.5, 0], t0=0.0, t1=1.0)
+            b.triangles_bulk(a, b_, c_, m)
+            b.triangles_bulk(a[:3], b_[:3], c_[:3], m, an=nrm[:3], bn=nrm[:3], cn=nrm[:3])
+        else:
+            for k in range(40):
+                b.sphere(c[k], float(r[k]), m)
+            for k in range(2):
+                b.sphere(c[k], 0.2, m, center1=c[k] + [0, 0.5, 0], t0=0.0, t1=1.0)
+            for k in range(30):
+                b.triangle(a[k], b_[k], c_[k], m)
+            for k in range(3):
+                b.triangle(a[k], b_[k], c_[k], m, an=nrm[k], bn=nrm[k], cn=nrm[k])
+        return b.build()
+
+    bulk = build(tscenes.SceneBuilder, True)
+    _assert_same(_leaves(build(JSceneBuilder, True)), _leaves(bulk))
+    # per call: the same rows, the flat normals to an ulp (a norm over one
+    # row against one over the block)
+    per_call, bulk_leaves = _leaves(build(tscenes.SceneBuilder, False)), _leaves(bulk)
+    for k in ("tri_mn", "tri_un", "tri_vn"):
+        np.testing.assert_allclose(per_call.pop(k), bulk_leaves.pop(k), rtol=0, atol=1e-6)
+    _assert_same(per_call, bulk_leaves)
+    assert bulk.n_spheres == 43 and bulk.n_tris == 1 + 30 + 3 + 12
+    assert bool(bulk.sph_moving[-2:].all()) and not bool(bulk.sph_moving[:-2].any())
 
 
 def test_sample_offsets_equal_jax():

@@ -178,7 +178,60 @@ def test_eager_queue_on_cuda_launches_kernels_and_matches_plain(name):
     from miniraytracer_tpu_torch.ops import noise
 
     scene = getattr(mrt.scenes, name)(1.0).to("cuda")
-    chip_smoke.compare_eager_queue(name, integrator, flash, noise, scene, 32, 2, 8, 300)
+    chip_smoke.compare_eager_queue(name, integrator, scene, 32, 2, 8, 300,
+                                   chip_smoke.sphere_counters(flash, noise))
+
+
+def _cuda_triangles(tmp_path, monkeypatch, **mesh):
+    monkeypatch.setenv("MRT_ASSETS", mrt.scenes.write_stand_in_meshes(str(tmp_path), **mesh))
+    return mrt.scenes.triangles(1.0).to("cuda")
+
+
+@pytest.mark.cuda
+def test_clustered_tri_kernels_on_cuda_match_plain(tmp_path, monkeypatch):
+    """B10, B11 and B9 on the card against their plain versions on rays of
+    real queue steps of the triangles scene (stand-in meshes, 2,816
+    triangles): equal t and index on every ray, seeded and not, and against
+    the dense kernel B7 (`chip_smoke.compare_tri_clustered`)."""
+    _need_cuda()
+    import chip_smoke
+    from miniraytracer_tpu_torch.models import integrator
+
+    scene = _cuda_triangles(tmp_path, monkeypatch, bunny_subdiv=3, torus_segments=(32, 24))
+    cull, coeffs = flash.scene_tri_cull(scene), flash.scene_tri_coefficients(scene)
+    calls = chip_smoke.queue_snapshots(integrator, hybrid, scene, 48, 48, 2, 8, 1000)
+    for t in (2, len(calls) - 3):
+        _, fstate, inside, _, _ = calls[t]
+        ro, rd, _, inside, alive = chip_smoke.snapshot_rays(hybrid, fstate, inside)
+        seed = torch.where(alive & (torch.arange(alive.numel(), device="cuda") % 2 == 0),
+                           torch.full_like(fstate[0], 400.0), 3.0e38)
+        launches = (flash.resident_launches, flash.tri_streamed_launches, flash.culled_launches)
+        assert chip_smoke.compare_tri_clustered(f"step {t}", flash, cull, coeffs, ro, rd, inside,
+                                                alive, seed, bounce.TMIN) == 0.0
+        assert (flash.resident_launches, flash.tri_streamed_launches,
+                flash.culled_launches) == tuple(n + k for n, k in zip(launches, (2, 2, 3)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_shade", [True, False])
+def test_triangles_queue_on_cuda_launches_b10_and_matches_plain(tmp_path, monkeypatch,
+                                                                 fused_shade):
+    """The triangles scene (stand-in meshes) through the work queue on the
+    card, with its shade step and with its shading in tensor operations: B10
+    launches once a queue step and the frame agrees with the plain run
+    (`chip_smoke.compare_queue`, `compare_eager_queue`)."""
+    _need_cuda()
+    import chip_smoke
+    from miniraytracer_tpu_torch.models import integrator
+
+    scene = _cuda_triangles(tmp_path, monkeypatch, bunny_subdiv=3, torus_segments=(16, 12))
+    before = flash.resident_launches
+    if fused_shade:
+        steps = chip_smoke.compare_queue("triangles", integrator, scene, 32, 32, 2, 8, 300)
+        assert flash.resident_launches == before + steps
+    else:
+        chip_smoke.compare_eager_queue("triangles", integrator, scene, 32, 2, 8, 300,
+                                       {"B10": lambda: flash.resident_launches})
 
 
 # ---------------------------------------------------------------------------
