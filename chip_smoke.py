@@ -47,7 +47,17 @@ the ported paths on the card:
   budget, for B11;
 - the reference renderer's 64-spp frames: the work queue at 100x100, 64 spp,
   16 bounces on the five scenes that need no asset file, held to the bounds
-  of tests/test_reference_parity.py.
+  of tests/test_reference_parity.py;
+- the hybrid-ext train step (phases 28-30): kernels B2/B3 in their ext,
+  ext-material and image modes (the candidate from outside each step an
+  input, its cotangent an output) against their plain versions lane by lane
+  on states of real scan steps, the whole hybrid-ext scan (the kernels and
+  the sweeps of flash.cu under their custom VJPs) against its plain version
+  in loss and gradients on the four scenes the JAX package trains with
+  fused="ext" and a 200-triangle probe, then `make_train_step(fused_ad="ext")`
+  at 500x500, 32 bounces, 8 samples a step: three steps on random_spheres
+  whose loss on a held-out sample set must fall, and timed steps on
+  triangles (stand-in meshes), earth and book2_final.
 
 Each main path is driven with the kernels' launch counts set to 0 just before
 and read just after. Every phase raises on failure, so the exit code is
@@ -292,7 +302,9 @@ def main() -> None:
             ("18-22", lambda: eager_phases(mrt, flash, hybrid, noise, dev, card_line, refs,
                                            kernel_rows)),
             ("23-26", lambda: triangle_phases(mrt, bounce, flash, hybrid, dev, card_line)),
-            ("27", lambda: reference_gate(mrt, dev, refs))):
+            ("27", lambda: reference_gate(mrt, dev, refs)),
+            ("28-30", lambda: ext_train_phases(mrt, bounce, bounce_ad, flash, hybrid, dev,
+                                               card_line))):
         t0 = time.perf_counter()
         kernel_rows += phases()
         print(f"phase{'s' if '-' in name else ''} {name} took {time.perf_counter() - t0:.1f} s")
@@ -326,31 +338,43 @@ def device_share(fn):
     return wall, sum(ms for ms, _ in by_name.values()), by_name
 
 
-def scan_with_grads(mrt, bounce, bounce_ad, scene, w, h, spp, bounces, plain):
+def scan_with_grads(mrt, bounce, bounce_ad, scene, w, h, spp, bounces, plain, use_ext=False):
     """One scan of the whole image from the scene's TrainParams, through the
     kernels (the public entry point) or through their plain versions (the
-    same scan put together from `scan_forward` and `scan_backward`). Returns
-    (sums, nvalid, rays, grads): grads(target, mask) gives the SSE loss over
-    the pixels of `mask` and its gradient for every TrainParams leaf."""
+    same scan put together from `scan_forward` and `scan_backward`); with
+    `use_ext` the hybrid-ext scan, whose plain version also sweeps and
+    replays its candidate with the plain sweeps (`ExtCandidate(plain=True)`).
+    Returns (sums, nvalid, rays, grads): grads(target, mask) gives the SSE
+    loss over the pixels of `mask` and its gradient for every TrainParams
+    leaf."""
+    from miniraytracer_tpu_torch.ops import hybrid
+
     leaves = mrt.TrainParams(*(p.detach().clone().requires_grad_(True)
                                for p in mrt.extract_params(scene)))
     sc = mrt.apply_params(scene, leaves)
     pix = torch.arange(w * h, dtype=torch.int32, device=scene.device)
     if plain:
-        meta, tables = bounce.pack_scene(sc)
-        _, claim, k_sub, outer = bounce_ad.scan_plan(spp, bounces)
+        cand = images = None
+        if use_ext:
+            meta, tables = hybrid.pack_scene_hybrid(sc)
+            cand = bounce_ad.ExtCandidate(sc, plain=True)
+            images = sc.images if meta["image"] else None
+        else:
+            meta, tables = bounce.pack_scene(sc)
+        _, claim, k_sub, outer = bounce_ad.scan_plan(spp, bounces, 0, 1 if use_ext else 0)
         cfg = bounce_ad.StepConfig(w, h, 8, bounces, spp, claim, k_sub)
         sb = torch.zeros_like(pix)
         consts = [t.detach() for t in tables]
         state = bounce_ad.initial_state(sc, pix, sb, spp, width=w, height=h, sq_off=8)
         (f, _, _), residual = bounce_ad.scan_forward(
-            meta, cfg, outer, consts, *state, pix, sb, plain=True)
+            meta, cfg, outer, consts, *state, pix, sb, plain=True, candidate=cand,
+            images=images)
         f.requires_grad_(True)
         summ, nv = f[bounce_ad.A_SUM:bounce_ad.A_SUM + 3].t(), f[bounce_ad.A_NV].detach()
         rays = int(f[bounce_ad.A_RAYS].detach().to(torch.int64).sum())
     else:
         summ, nv, rays = bounce_ad.sample_pixel_sums_fused(
-            sc, pix, 0, spp, width=w, height=h, max_bounces=bounces)
+            sc, pix, 0, spp, width=w, height=h, max_bounces=bounces, use_ext=use_ext)
         rays = int(rays)
 
     def grads(target, mask):
@@ -359,10 +383,15 @@ def scan_with_grads(mrt, bounce, bounce_ad, scene, w, h, spp, bounces, plain):
         loss = (err * err).sum() / (w * h * 3.0)
         if plain:
             cot, = torch.autograd.grad(loss, f)
+            if cand is not None:
+                cand.start_pullback()
             d_tables = bounce_ad.scan_backward(meta, cfg, outer, consts, residual,
-                                               pix, sb, cot, plain=True)
-            pairs = [(t, g) for t, g in zip(tables, d_tables)
-                     if g is not None and t.requires_grad]
+                                               pix, sb, cot, plain=True, candidate=cand,
+                                               images=images)
+            outs, gs = list(tables), list(d_tables)
+            if cand is not None:  # the candidate's inputs: coefficients, scene leaves
+                outs, gs = outs + cand.inputs(), gs + cand.grads
+            pairs = [(t, g) for t, g in zip(outs, gs) if g is not None and t.requires_grad]
             out = torch.autograd.grad([t for t, _ in pairs], list(leaves),
                                       grad_outputs=[g for _, g in pairs], allow_unused=True)
         else:
@@ -373,15 +402,19 @@ def scan_with_grads(mrt, bounce, bounce_ad, scene, w, h, spp, bounces, plain):
     return summ.detach(), nv, rays, grads
 
 
-def compare_scans(mrt, bounce, bounce_ad, scene, w, h, spp, bounces, where):
-    """The whole scan through the kernels against the plain versions: ray
-    counts within 0.1%, `nvalid` equal on 99.9% of pixels, sums within
-    1e-5*(1+|sum|) on 99%; then the SSE loss against a flat grey target over
-    the pixels that agree (a pixel is one lane with its own scan, so the
-    others get no cotangent) and every TrainParams gradient within rtol 5e-3,
-    atol 5e-4 of the leaf's largest entry, all finite."""
-    sk, nvk, rk, grads_k = scan_with_grads(mrt, bounce, bounce_ad, scene, w, h, spp, bounces, False)
-    sp, nvp, rp, grads_p = scan_with_grads(mrt, bounce, bounce_ad, scene, w, h, spp, bounces, True)
+def compare_scans(mrt, bounce, bounce_ad, scene, w, h, spp, bounces, where, use_ext=False):
+    """The whole scan through the kernels against the plain versions (with
+    `use_ext` the hybrid-ext scan: B2/B3 in their ext modes and the sweeps
+    of flash.cu): ray counts within 0.1%, `nvalid` equal on 99.9% of pixels,
+    sums within 1e-5*(1+|sum|) on 99%; then the SSE loss against a flat
+    grey target over the pixels that agree (a pixel is one lane with its own
+    scan, so the others get no cotangent) and every TrainParams gradient
+    within rtol 5e-3, atol 5e-4 of the leaf's largest entry, all finite.
+    Returns the leaves whose plain gradient is not zero."""
+    sk, nvk, rk, grads_k = scan_with_grads(mrt, bounce, bounce_ad, scene, w, h, spp, bounces,
+                                           False, use_ext)
+    sp, nvp, rp, grads_p = scan_with_grads(mrt, bounce, bounce_ad, scene, w, h, spp, bounces,
+                                           True, use_ext)
     nv_same = nvk == nvp
     close = nv_same & ((sk - sp).abs() <= 1e-5 * (1 + sp.abs())).all(1)
     target = torch.full((w * h, 3), 0.25, device=sk.device)
@@ -406,11 +439,14 @@ def compare_scans(mrt, bounce, bounce_ad, scene, w, h, spp, bounces, where):
     check(abs(float(lk) - float(lp)) <= 1e-4 * abs(float(lp)), f"{where}: losses differ")
     check(len(seen) > 0, f"{where}: every plain gradient is zero")
     check(worst <= 1.0, f"{where}: TrainParams grads differ from plain autograd")
+    return seen
 
 
-def compare_launch(bounce_ad, args, res, gen, where):
+def compare_launch(bounce_ad, args, res, gen, where, ext=None, images=None):
     """One launch of B2 and one of B3 against their plain versions, from the
-    entry state `res` = (residual rows (13, N), istate, keys, pix, sb).
+    entry state `res` = (residual rows (14, N), istate, keys, pix, sb), and
+    in an ext mode from the candidate rows `ext` (and the image atlas
+    `images`), whose cotangent `d_ext` is held as `d_f` is.
 
     The kernel and the plain version round sin, cos, log and exp differently,
     so a lane in a few thousand takes another discrete decision (another
@@ -435,9 +471,10 @@ def compare_launch(bounce_ad, args, res, gen, where):
     n = res_f.shape[1]
     zeros = torch.zeros((3, n), device=res_f.device)
     f_in = torch.cat([zeros, res_f, zeros[:2]])
+    xa = () if ext is None else (ext, images)
     run = {
-        "fwd_k": lambda: A.ad_step_fwd(*args, f_in, *lanes),
-        "fwd_p": lambda: A.ad_step_fwd_plain(*args, f_in, *lanes),
+        "fwd_k": lambda: A.ad_step_fwd(*args, f_in, *lanes, *xa),
+        "fwd_p": lambda: A.ad_step_fwd_plain(*args, f_in, *lanes, *xa),
     }
     (fk, ik, kk), (fp, ip, kp) = run["fwd_k"](), run["fwd_p"]()
     err = (fk - fp).abs()
@@ -447,9 +484,12 @@ def compare_launch(bounce_ad, args, res, gen, where):
     tol[A.A_ALIVE:] = 0.0  # alive, nvalid, rays: whole numbers
     agree = (ik == ip).all(0) & (kk == kp) & (err <= tol).all(0)
     cot = torch.randn((A.NF, n), device=res_f.device, generator=gen) * agree
-    run["bwd_k"] = lambda: A.ad_step_bwd(*args, res_f, *lanes, cot)
-    run["bwd_p"] = lambda: A.ad_step_bwd_plain(*args, res_f, *lanes, cot)
-    (dk, tk), (dp, tp) = run["bwd_k"](), run["bwd_p"]()
+    run["bwd_k"] = lambda: A.ad_step_bwd(*args, res_f, *lanes, cot, None, *xa)
+    run["bwd_p"] = lambda: A.ad_step_bwd_plain(*args, res_f, *lanes, cot, *xa)
+    out_k, out_p = run["bwd_k"](), run["bwd_p"]()
+    (dk, tk), (dp, tp) = out_k[:2], out_p[:2]
+    if ext is not None:  # d_ext rows beside d_f's
+        dk, dp = torch.cat([dk, out_k[2]]), torch.cat([dp, out_p[2]])
     d_err = (dk - dp).abs()
     top = dp.abs().amax(0)
     close = (d_err <= 2e-3 * dp.abs() + 2e-4 * top).all(0)
@@ -467,7 +507,8 @@ def compare_launch(bounce_ad, args, res, gen, where):
         "df_err": float(d_err[:, agree & close].max()),
         "df_scale": float(top[agree & close].max()),
         "df_rel": float(rel.max()), "df_rel_median": float(q[0]), "df_rel_p99": float(q[1]),
-        "dtab_rel": float(((tk - tp).abs() / tp.abs().max().clamp_min(1e-30)).max()),
+        "dtab_rel": (float(((tk - tp).abs() / tp.abs().max().clamp_min(1e-30)).max())
+                     if tp.numel() else 0.0),
         "rays": int(fp[A.A_RAYS].sum()),
         "run": run,
     }
@@ -480,7 +521,8 @@ def compare_launch(bounce_ad, args, res, gen, where):
     check(out["agree"] >= 0.99, f"{where}: B2 agrees with plain on {out['agree']:.4f} of lanes")
     check(out["df_close"] >= 0.99,
           f"{where}: B3 d_f differs from plain on {1 - out['df_close']:.4f} of lanes")
-    check(((tk - tp).abs() <= 2e-3 * tp.abs() + 2e-4 * tp.abs().max()).all().item(),
+    check(tp.numel() == 0
+          or ((tk - tp).abs() <= 2e-3 * tp.abs() + 2e-4 * tp.abs().max()).all().item(),
           f"{where}: B3 d_tab differs from plain (rtol 2e-3), max {out['dtab_rel']:.3g} of scale")
     return out
 
@@ -1798,6 +1840,324 @@ def triangle_phases(mrt, bounce, flash, hybrid, dev, card_line, size=500, spp=64
          "launches": b9_launches, "launches_path": "the entry point on the camera rays",
          "launches_triangles_frame": counts["b9"], **rows["flash_tri_hit_culled"], **common},
     ]
+
+
+# ---------------------------------------------------------------------------
+# The hybrid-ext train step: kernels B2/B3 (bounce_ad.cu) in their ext,
+# ext-material and image modes, with the differentiable sweeps
+# ---------------------------------------------------------------------------
+
+# the four scenes outside the fused class that the JAX package trains with
+# fused="ext" (benchmarks/ad_scenes.py)
+EXT_SCENES = ("random_spheres", "triangles", "earth", "book2_final")
+# the kernels' instance each result row reports (bounce_ad.step_mode)
+EXT_MODES = ("ext", "ext_mat", "image")
+
+
+def ext_scene(mrt, name):
+    return triangles_scene(mrt) if name == "triangles" else getattr(mrt.scenes, name)(1.0)
+
+
+def ext_states(bounce_ad, hybrid, scene, w, spp, bounces, at, plain):
+    """Entry states and candidate rows of real steps of the hybrid-ext scan
+    over the whole image: (meta, cfg, tables, images, pix, sb, outer,
+    {t: (res_f, istate, keys, ext)}) for the steps in `at`."""
+    plan = hybrid.smem_plan(scene) if hybrid.ext_mat_mode(scene) else None
+    meta, tables = hybrid.pack_scene_hybrid(scene, plan)
+    tables = [t.detach() for t in tables]
+    _, claim, k_sub, outer = bounce_ad.scan_plan(spp, bounces, 0, 1)
+    cfg = bounce_ad.StepConfig(w, w, 8, bounces, spp, claim, k_sub)
+    pix = torch.arange(w * w, dtype=torch.int32, device=scene.device)
+    sb = torch.zeros_like(pix)
+    f, i, k = bounce_ad.initial_state(scene, pix, sb, spp, width=w, height=w, sq_off=8)
+    cand = bounce_ad.ExtCandidate(scene, plain)
+    images = scene.images if meta["image"] else None
+    step = bounce_ad.ad_step_fwd_plain if plain else bounce_ad.ad_step_fwd
+    states = {}
+    with torch.no_grad():
+        for t in range(max(at) + 1):
+            ext = cand.rows(f, i)
+            if t in at:
+                states[t] = (f[bounce_ad.RES_LO:bounce_ad.RES_HI].contiguous(), i, k, ext)
+            f, i, k = step(meta, cfg, tables, t, f, i, k, pix, sb, ext, images)
+    return meta, cfg, tables, images, pix, sb, outer, states
+
+
+def ext_gradient_check(mrt, bounce_ad, step, scene, params, target, w, spp, bounces):
+    """The train step's gradient at `params` against central differences
+    (eps 1e-2) of the same loss on the same sample set (set 0), entry by
+    entry: the ground's checker colours and the other albedo row with the
+    largest gradient must agree within 1e-2 of the entry or 1e-3 of the
+    leaf's largest gradient (an albedo scales each path's throughput, so
+    the loss is smooth in it). The three mat_param entries with the largest
+    gradient are printed beside theirs and not held: the path derivative
+    keeps each sampled path's discrete choices fixed (a Fresnel draw, total
+    internal reflection, which sphere a ray hits, a fuzzed ray below the
+    surface), so in an index of refraction or a fuzz it is not the slope of
+    the loss, and the JAX package's gradient is the same
+    (tests/test_torch_bounce_ad_ext.py holds the port's to the JAX one's on
+    this scene)."""
+    pix = torch.arange(w * w, dtype=torch.int32, device=scene.device)
+
+    def loss(p):
+        with torch.no_grad():
+            summ, nv, _ = bounce_ad.sample_pixel_sums_fused(
+                mrt.apply_params(scene, p), pix, 0, spp, width=w, height=w,
+                max_bounces=bounces, use_ext=True)
+            n = nv[:, None]
+            err = torch.where(n > 0, summ / n.clamp_min(1) - target, 0.0)
+            return float((err * err).sum() / (w * w * 3.0))
+
+    _, l0, g = step(params, scene, target, 0, 0.0)
+    other = g.tex_c0[1:].abs().amax(1).argmax().item() + 1
+    entries = [("tex_c0", (0, c)) for c in range(3)] + [("tex_c1", (0, c)) for c in range(3)]
+    entries += [("tex_c0", (other, c)) for c in range(3)]
+    entries += [("mat_param", (j,)) for j in g.mat_param.abs().argsort(descending=True)[:3].tolist()]
+    eps, worst, lines = 1e-2, 0.0, []
+    for leaf, idx in entries:
+        fd = []
+        for sign in (1.0, -1.0):
+            q = getattr(params, leaf).clone()
+            q[idx] += sign * eps
+            fd.append(loss(params._replace(**{leaf: q})))
+        fd = (fd[0] - fd[1]) / (2 * eps)
+        ad = float(getattr(g, leaf)[idx])
+        lines.append(f"{leaf}{list(idx)} {ad:.6g} / {fd:.6g}")
+        if leaf != "mat_param":
+            scale = float(getattr(g, leaf).abs().max())
+            worst = max(worst, abs(ad - fd) / (1e-2 * abs(fd) + 1e-3 * scale))
+    print(f"  random_spheres: gradient / central difference (eps {eps}, sample set 0, loss "
+          f"{float(l0)}): " + "; ".join(lines) + f"; albedo entries: worst excess {worst:.3g} "
+          f"(<= 1 passes); mat_param not held")
+    check(worst <= 1.0, "random_spheres: an albedo gradient differs from its central difference")
+
+
+def ext_train_phases(mrt, bounce, bounce_ad, flash, hybrid, dev, card_line, size=500,
+                     small=64):
+    """Phases 28-30: B2/B3 in their ext modes, the hybrid-ext scan (at
+    `small` x `small`) and `make_train_step(fused_ad="ext")` (at `size` x
+    `size`). Returns the rows of the three modes' kernels (forward and
+    backward) of the result line."""
+    A = bounce_ad
+    t_phase = time.perf_counter()
+    scenes_cpu = {name: ext_scene(mrt, name) for name in EXT_SCENES}
+    scenes = {name: scene.to(dev) for name, scene in scenes_cpu.items()}
+    # the fifth instance: ext-material with image textures (random_spheres_2;
+    # no scene the JAX package trains with fused="ext" takes it)
+    scenes["random_spheres_2"] = mrt.scenes.random_spheres_2(1.0).to(dev)
+    for name, scene in scenes.items():
+        check(A.can_fuse_ad_ext(scene), f"{name} is not in the hybrid-ext class")
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    # 28. each mode against its plain version, launch by launch
+    w, spp, bounces = small, 2, 8
+    print(f"phase 28: AD step kernels in their ext modes vs plain PyTorch, on states of the "
+          f"plain hybrid-ext scan, {w}x{w}, {spp} spp, {bounces} bounces")
+    worst = {}
+    for name, scene in scenes.items():
+        at = (0, 1, 12)
+        meta, cfg, tables, images, pix, sb, _, states = ext_states(
+            A, hybrid, scene, w, spp, bounces, at, True)
+        mode = A.step_mode(meta, True)
+        for t in at:
+            res_f, res_i, res_k, ext = states[t]
+            c = compare_launch(A, (meta, cfg, tables, t), (res_f, res_i, res_k, pix, sb), gen,
+                               f"{name} ({mode}) launch {t}", ext, images)
+            for key in ("fwd_err", "fwd_rel", "df_err", "df_rel", "dtab_rel"):
+                worst[mode, key] = max(worst.get((mode, key), 0.0), c[key])
+
+    print(f"  phase 28 took {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+
+    # 29. the whole scan: kernels vs plain versions, loss and gradients
+    print(f"phase 29: hybrid-ext scan, kernels vs plain PyTorch, loss and TrainParams "
+          f"gradients, {w}x{w}, {spp} spp, {bounces} bounces")
+    probe = mrt.scenes.hybrid_probe(1.0, 80, 200).to(dev)  # 200 triangles: the dense B7
+    flash.tri_launches = 0
+    compare_scans(mrt, bounce, A, probe, w, w, spp, bounces,
+                  "hybrid_probe (80 spheres, 200 triangles)", use_ext=True)
+    check(flash.tri_launches > 0, "the 200-triangle probe did not launch B7")
+    grads_seen = {}
+    for name in EXT_SCENES:
+        grads_seen[name] = compare_scans(mrt, bounce, A, scenes[name], w, w, spp, bounces,
+                                         name, use_ext=True)
+    check("tri_m" in grads_seen["triangles"], "no tri_m gradient on triangles")
+    check("sph_c0" in grads_seen["random_spheres"] and "sph_c0" in grads_seen["book2_final"],
+          "no sph_c0 gradient on random_spheres or book2_final")
+    del scenes["random_spheres_2"]
+    print(f"  phase 29 took {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+
+    # 30. make_train_step(fused_ad="ext") at full width
+    w, bounces, spp_step = size, 32, 8
+    scan_steps, _, _, outer = A.scan_plan(spp_step, bounces, 0, 1)
+    print(f"phase 30: make_train_step(fused_ad='ext', {w}x{w}, {bounces} bounces, "
+          f"spp_step={spp_step}): scan_steps {scan_steps}, one sub-step a launch, {outer} "
+          f"launches each way")
+    counters = {"B8 flash_sphere_hit": ("sphere_launches", flash),
+                "B13 flash_sphere_hit_gated": ("gated_launches", flash),
+                "B10 flash_tri_hit_resident": ("resident_launches", flash),
+                "B11 flash_tri_hit_streamed": ("tri_streamed_launches", flash),
+                "B7 flash_tri_hit": ("tri_launches", flash)}
+    for _, (attr, mod) in counters.items():
+        setattr(mod, attr, 0)
+    torch.cuda.synchronize()
+    A.mode_launches.clear()
+    A.fwd_launches = A.bwd_launches = 0
+    for name in EXT_SCENES:
+        scene_cpu, scene = scenes_cpu[name], scenes[name]
+        ne = A.ext_rows(hybrid.pack_scene_hybrid(scene)[0])
+        res_bytes = A.residual_bytes(w * w, outer, ne)
+        step = mrt.make_train_step(width=w, height=w, max_bounces=bounces, spp_step=spp_step,
+                                   fused_ad="ext", scene=scene_cpu)
+        before = {k: getattr(mod, attr) for k, (attr, mod) in counters.items()}
+        modes_before = A.mode_launches.copy()
+        params0 = mrt.extract_params(scene)
+        if name == "random_spheres":
+            # target: the same scene with another ground checker
+            c0, c1 = scene.tex_c0.clone(), scene.tex_c1.clone()
+            c0[0] = torch.tensor([0.45, 0.20, 0.10])
+            c1[0] = torch.tensor([0.60, 0.60, 0.60])
+            target, _ = mrt.render(dataclasses.replace(scene, tex_c0=c0, tex_c1=c1), w, w, 16,
+                                   max_bounces=bounces)
+            target = target.reshape(-1, 3)
+            ext_gradient_check(mrt, A, step, scene, params0, target, w, spp_step, bounces)
+            # three steps, then the loss on a held-out sample set (sample
+            # index 3), as in phase 7 and at its lr: every albedo (tex_c0,
+            # tex_c1) learns; geometry and mat_param keep their values (the
+            # path derivative in an index of refraction or a fuzz is not the
+            # loss's slope, see ext_gradient_check; the same steps with
+            # mat_param learning too are printed after)
+            lr, params, losses, t0 = 0.5, params0, [], time.perf_counter()
+            for i in range(3):
+                new, loss, grads = step(params, scene, target, i, lr)
+                new = params0._replace(tex_c0=new.tex_c0, tex_c1=new.tex_c1)
+                losses.append(float(loss))
+                check(all(torch.isfinite(g).all().item() for g in grads),
+                      f"{name} step {i}: grads not finite")
+                print(f"    step {i}: loss {losses[-1]}; " + ", ".join(
+                    f"{k} max|g| {float(getattr(grads, k).abs().max()):.4g} max|dp| "
+                    f"{float((getattr(new, k) - getattr(params, k)).abs().max()):.4g}"
+                    for k in ("tex_c0", "tex_c1")))
+                params = new
+            torch.cuda.synchronize()
+            three = time.perf_counter() - t0
+            held_first = float(step(params0, scene, target, 3, 0.0)[1])
+            held_last = float(step(params, scene, target, 3, 0.0)[1])
+            print(f"  {name}: losses of the 3 steps (lr {lr}, every albedo learning) {losses} "
+                  f"in {three:.2f} s; held-out sample set 3: loss {held_first} with the first "
+                  f"params, {held_last} after 3 updates; ground checker now "
+                  f"{params.tex_c0[0].tolist()} / {params.tex_c1[0].tolist()}")
+            check(all(np.isfinite(l) for l in losses + [held_first, held_last]), "loss not finite")
+            check(held_last < held_first, f"{name}: the held-out loss did not fall")
+            p_all = params0
+            for i in range(3):
+                new = step(p_all, scene, target, i, lr)[0]
+                p_all = params0._replace(tex_c0=new.tex_c0, tex_c1=new.tex_c1,
+                                         mat_param=new.mat_param)
+            moved = (p_all.mat_param - params0.mat_param).abs()
+            print(f"    the same 3 steps with mat_param learning too (not held): held-out loss "
+                  f"{float(step(p_all, scene, target, 3, 0.0)[1])}; mat_param moved by up to "
+                  f"{float(moved.max()):.4g} (entry {int(moved.argmax())})")
+        else:
+            target = torch.full((w * w, 3), 0.25, device=dev)
+            _, loss, grads = step(params0, scene, target, 0, 0.0)  # warm
+            check(torch.isfinite(loss).item() and all(torch.isfinite(g).all().item()
+                                                      for g in grads),
+                  f"{name}: loss or grads not finite")
+        one_step = lambda: step(params0, scene, target, 0, 0.0)
+        step_ms = cuda_ms(one_step, 2)
+        launched = {k: getattr(mod, attr) - before[k] for k, (attr, mod) in counters.items()}
+        modes = {f"{d}[{m}]": c - modes_before.get((d, m), 0)
+                 for (d, m), c in A.mode_launches.items() if c - modes_before.get((d, m), 0)}
+        grads = one_step()[2]
+        check(all(torch.isfinite(g).all().item() for g in grads), f"{name}: grads not finite")
+        pix = torch.arange(w * w, dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            _, nv, rays = A.sample_pixel_sums_fused(scene, pix, 0, spp_step, width=w, height=w,
+                                                    max_bounces=bounces, use_ext=True)
+        rays = int(rays)
+        done_frac = float(nv.sum()) / (w * w * spp_step)
+        med = statistics.median(step_ms)
+        print(f"  {name}: step {med:.1f} ms (median of 2 warm; runs {step_ms}); rays {rays}; "
+              f"done_frac {done_frac:.4f}; fwd+bwd {rays / (med / 1e3) / 1e6:.2f} Mrays/s; "
+              f"residual {res_bytes / 1e9:.2f} GB; grads finite; on {card_line}")
+        print(f"    launches in its steps: "
+              + ", ".join(f"{k} {v}" for k, v in {**modes, **launched}.items() if v))
+        wall, busy, by_name = device_share(one_step)
+        print(f"    one step under torch.profiler: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+              f"(idle share {max(0.0, 1 - busy / wall):.3f}), "
+              f"{sum(c for _, c in by_name.values())} launches on the device")
+        # the candidate's share: all but B2/B3 (the sweeps, the record
+        # assembly, the replay and its autograd backward), beside the bytes
+        # its record work must move a scan step: a lane reads its ray (ro, rd,
+        # time, inside, alive: 9 words) and its winner's rows (geometry,
+        # material, texture: ~22 words) and writes NE rows; the replay reads
+        # the same again and d_ext (NE) and writes the rays' cotangent (7)
+        cand = [(ms, c) for k, (ms, c) in by_name.items() if "ad_step_" not in k]
+        cand_bound, _ = bound(4 * w * w * (2 * (9 + 22 + ne) + ne + 7), 0)
+        print(f"    the candidate and its replay (all but B2/B3): "
+              f"{sum(ms for ms, _ in cand) / outer:.3f} ms of device time and "
+              f"{sum(c for _, c in cand) / outer:.0f} launches a scan step; the byte bound of "
+              f"its record work {cand_bound:.4f} ms a step")
+        for kname, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]:
+            print(f"      {ms:8.2f} ms  {100 * ms / busy:5.1f}%  x{count:<5d} {kname[:90]}")
+    launches = dict(A.mode_launches)
+    print(f"  main path launches: B2/B3 by mode {launches}; "
+          + ", ".join(f"{k} {getattr(mod, attr)}" for k, (attr, mod) in counters.items()))
+    for mode in EXT_MODES:
+        check(launches.get(("fwd", mode), 0) > 0 and launches.get(("bwd", mode), 0) > 0,
+              f"the train steps did not launch B2/B3[{mode}]")
+    check(launches.get(("fwd", "fused"), 0) == 0, "a hybrid-ext step launched the fused mode")
+
+    print(f"  phase 30's train steps took {time.perf_counter() - t_phase:.1f} s")
+
+    # one launch of each mode at full width against plain, timed in turns,
+    # on the state of step outer // 4 of the kernel scan
+    rows = []
+    for mode, name in (("ext", "triangles"), ("ext_mat", "random_spheres"), ("image", "earth")):
+        t_mid = outer // 4
+        meta, cfg, tables, images, pix, sb, _, states = ext_states(
+            A, hybrid, scenes[name], w, spp_step, bounces, (t_mid,), False)
+        res_f, res_i, res_k, ext = states[t_mid]
+        c = compare_launch(A, (meta, cfg, tables, t_mid), (res_f, res_i, res_k, pix, sb), gen,
+                           f"{name} ({mode}) {w}x{w} launch {t_mid}", ext, images)
+        run, n = c["run"], w * w
+        ms = {key: [] for key in run}
+        for key in ("fwd_p", "fwd_k", "fwd_k", "fwd_p", "bwd_p", "bwd_k", "bwd_k", "bwd_p"):
+            reps = 5 if key.endswith("_k") else 1
+            ms[key].append(cuda_ms(lambda: [run[key]() for _ in range(reps)], 1)[0] / reps)
+        ne = A.ext_rows(meta)
+        table_bytes = 4 * sum(t.numel() for t in tables)
+        ops = step_ops_per_ray(meta)
+        b2_bound, b2_by = bound(4 * n * (48 + ne) + table_bytes, c["rays"] * ops)
+        b3_bound, b3_by = bound(4 * n * (57 + 2 * ne) + table_bytes, c["rays"] * 2 * ops)
+        print(f"    {c['rays']} rays: B2[{mode}] kernel {ms['fwd_k']} ms, plain {ms['fwd_p']} ms; "
+              f"B3[{mode}] kernel {ms['bwd_k']} ms, plain {ms['bwd_p']} ms; bounds B2 "
+              f"{b2_bound:.4f} ms by {b2_by}, B3 {b3_bound:.4f} ms by {b3_by} "
+              f"({ops} operations a ray forward) on {card_line}")
+        common = {"route": "cuda", "source": "miniraytracer_tpu_torch/csrc/bounce_ad.cu",
+                  "library_ms": None}
+        rows += [
+            {"name": f"ad_step_fwd[{mode}]", "replaces": "miniraytracer_tpu/ops/bounce_ad.py:219",
+             "launches": launches.get(("fwd", mode), 0),
+             "max_abs_err": max(worst[mode, "fwd_err"], c["fwd_err"]),
+             "max_rel_lane_err": max(worst[mode, "fwd_rel"], c["fwd_rel"]),
+             "lanes_agreeing": c["agree"],
+             "ms": statistics.mean(ms["fwd_k"]), "plain_ms": statistics.mean(ms["fwd_p"]),
+             "bound_ms": b2_bound, "bound_by": b2_by, **common},
+            {"name": f"ad_step_bwd[{mode}]", "replaces": "miniraytracer_tpu/ops/bounce_ad.py:276",
+             "launches": launches.get(("bwd", mode), 0),
+             "max_abs_err": max(worst[mode, "df_err"], c["df_err"]),
+             "err_scale": c["df_scale"],
+             "max_rel_lane_err": max(worst[mode, "df_rel"], c["df_rel"]),
+             "lanes_agreeing": c["df_close"],
+             "ms": statistics.mean(ms["bwd_k"]), "plain_ms": statistics.mean(ms["bwd_p"]),
+             "bound_ms": b3_bound, "bound_by": b3_by, **common},
+        ]
+        del run, c["run"], states
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------

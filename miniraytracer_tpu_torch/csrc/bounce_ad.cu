@@ -12,6 +12,17 @@
 // a finished finite sample into (sum, nvalid), and regeneration of the lane
 // with its next sample while the claim window is open.
 //
+// Scenes outside the fused class (ops/hybrid.py: big sphere, triangle and box
+// sets, more materials than the tables hold, image textures) take the step in
+// its ext modes, one sub-step a launch, as the hybrid step kernel does: EXT,
+// an (NE, n) candidate from outside seeds the nearest-hit sweep and is a
+// DIFFERENTIABLE input (its cotangent `d_ext` comes out of the backward, row
+// by row, one thread a lane); EXT_MAT, the candidate brings its material
+// (NE = 11); IMAGE, the image texel of a lane that goes on is fetched here and
+// multiplied into its throughput (the TPU kernel reports the texel index and
+// the scan multiplies it in between launches). Both kernels are templates over
+// the three switches; with all three off they are the fused class's kernels.
+//
 // mrt_ad_step_bwd is the vector-Jacobian product of those sub-steps. The TPU
 // kernel gets it from `jax.vjp` traced inside the kernel; here the adjoint is
 // written out. Every discrete choice (which primitive wins, material and
@@ -59,6 +70,10 @@ constexpr int NF = 19, NJ = 3, NRES = 13;
 constexpr int A_SUM = 0, A_RO = 3, A_RD = 6, A_TIME = 9, A_BETA = 10, A_RAD = 13, A_ALIVE = 16,
               A_NV = 17, A_RAYS = 18;
 constexpr int MAX_KSUB = 8;
+// candidate rows (ops/hybrid.py NE, NE_MAT): t, nx, ny, nz, mat_f, then in
+// ext-material mode mtype, mparam, albedo r g b, texel index
+constexpr int E_T = 0, E_N = 1, E_MAT = 4, E_MTYPE = 5, E_MPARAM = 6, E_ALB = 7, E_IMG = 10;
+constexpr int NE = 5, NE_MAT = 11;
 // 4 per sphere, 3 per triangle, 1 per material, 6 per texture at the caps
 constexpr int MAX_NDIFF = 4 * 64 + 3 * 64 + 24 + 6 * 24;
 
@@ -70,6 +85,11 @@ enum AdParamIdx {
   Q_EXACT_COS, Q_PERLIN, Q_COUNT
 };
 static_assert(Q_COUNT == 28, "parameter block size");
+
+// The ext-mode block, in the order ops/bounce_ad.py::ext_params packs it: the
+// three switches and the image atlas's shape.
+enum AdExtIdx { X_EXT, X_EXT_MAT, X_IMAGE, X_N_IMG, X_IH, X_IW, X_COUNT };
+static_assert(X_COUNT == 6, "ext parameter block size");
 
 struct AdParams : SceneDims {
   int n, width, height, sq_off, max_bounces, spp, claim_limit, k_sub, t_step;
@@ -99,9 +119,10 @@ __device__ __forceinline__ V3 sky(float rdy) {
 }
 
 // One sub-step (ops/bounce_ad.py::_pixel_step_math) at global step `t_global`.
-__device__ void ad_substep(const Tables& tb, const AdParams& P, uint32_t pix, int sampbase,
-                           int t_global, LaneState& s, V3& summ, float& nvalid, float& rays,
-                           SubRec* rec) {
+template <bool EXT, bool EXT_MAT, bool IMAGE>
+__device__ void ad_substep(const Tables& tb, const AdParams& P, const ExtCand& ext,
+                           const Atlas& atlas, uint32_t pix, int sampbase, int t_global,
+                           LaneState& s, V3& summ, float& nvalid, float& rays, SubRec* rec) {
   if (!s.alive) {  // a dead lane changes only its depth
     s.depth += 1;
     return;
@@ -109,7 +130,8 @@ __device__ void ad_substep(const Tables& tb, const AdParams& P, uint32_t pix, in
   rays = rays + 1.0f;
   uint32_t keys_b = fold(s.key, (uint32_t)s.depth);
   bool depth_ok = s.depth < P.max_bounces;
-  Bounce b = bounce_physics(tb, P, s.ro, s.rd, s.time, s.inside, keys_b);
+  Bounce b =
+      bounce_physics_t<EXT, EXT_MAT, IMAGE>(tb, P, s.ro, s.rd, s.time, s.inside, keys_b, ext, atlas);
   bool scattered = depth_ok && !b.is_light;
   bool add_emitted = !(scattered && b.is_specular);
   if (!b.hit) {
@@ -125,6 +147,8 @@ __device__ void ad_substep(const Tables& tb, const AdParams& P, uint32_t pix, in
     s.beta = s.beta * b.weight;
     cont = s.beta.x > 0.0f || s.beta.y > 0.0f || s.beta.z > 0.0f;
   }
+  V3 texel;
+  if (IMAGE && cont && pending_texel(atlas, b, texel)) s.beta = s.beta * texel;
   bool take = false, regen = false;
   if (!cont) {
     // finished: fold the sample under the all-channel finite mask
@@ -196,15 +220,38 @@ __device__ __forceinline__ void store3(float* __restrict__ f, int row, int n, in
   f[(row + 2) * n + lane] = a.z;
 }
 
+template <bool EXT, bool EXT_MAT>
+__device__ __forceinline__ ExtCand load_ext(const float* __restrict__ e, int n, int lane) {
+  ExtCand c{};
+  if (EXT) {
+    c.t = e[E_T * n + lane];
+    c.nx = e[E_N * n + lane];
+    c.ny = e[(E_N + 1) * n + lane];
+    c.nz = e[(E_N + 2) * n + lane];
+    c.mat = e[E_MAT * n + lane];
+  }
+  if (EXT_MAT) {
+    c.mtype = e[E_MTYPE * n + lane];
+    c.mparam = e[E_MPARAM * n + lane];
+    c.ar = e[E_ALB * n + lane];
+    c.ag = e[(E_ALB + 1) * n + lane];
+    c.ab = e[(E_ALB + 2) * n + lane];
+    c.img = e[E_IMG * n + lane];
+  }
+  return c;
+}
+
 // ---------------------------------------------------------------------------
 // B2: the forward step
 // ---------------------------------------------------------------------------
 
+template <bool EXT, bool EXT_MAT, bool IMAGE>
 __global__ void __launch_bounds__(MRT_AD_THREADS)
-ad_step_fwd_kernel(Tables tb, AdParams P, const float* __restrict__ f_in,
+ad_step_fwd_kernel(Tables tb, AdParams P, Atlas atlas, const float* __restrict__ f_in,
                    const int* __restrict__ i_in, const int* __restrict__ k_in,
                    const int* __restrict__ pix_in, const int* __restrict__ sb_in,
-                   float* __restrict__ f_out, int* __restrict__ i_out, int* __restrict__ k_out) {
+                   const float* __restrict__ ext_in, float* __restrict__ f_out,
+                   int* __restrict__ i_out, int* __restrict__ k_out) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   const int n = P.n;
   if (lane >= n) return;
@@ -214,8 +261,10 @@ ad_step_fwd_kernel(Tables tb, AdParams P, const float* __restrict__ f_in,
   V3 summ = v3(f_in[lane], f_in[n + lane], f_in[2 * n + lane]);
   float nvalid = f_in[A_NV * n + lane];
   float rays = f_in[A_RAYS * n + lane];
+  const ExtCand ext = load_ext<EXT, EXT_MAT>(ext_in, n, lane);
   for (int j = 0; j < P.k_sub; ++j)
-    ad_substep(tb, P, pix, sampbase, P.t_step * P.k_sub + j, s, summ, nvalid, rays, nullptr);
+    ad_substep<EXT, EXT_MAT, IMAGE>(tb, P, ext, atlas, pix, sampbase, P.t_step * P.k_sub + j,
+                                    s, summ, nvalid, rays, nullptr);
   store3(f_out, A_SUM, n, lane, summ);
   store3(f_out, A_RO, n, lane, s.ro);
   store3(f_out, A_RD, n, lane, s.rd);
@@ -259,6 +308,13 @@ __device__ __forceinline__ DiffBase diff_base(const SceneDims& P) {
   d.tex_c1 = d.tex_c0 + 3 * P.X;
   return d;
 }
+
+// Cotangent of the candidate from outside (rows E_T, E_N, E_MPARAM, E_ALB; the
+// material id, the material type and the texel index are discrete: zero).
+struct ExtCot {
+  float t, mparam;
+  V3 n, alb;
+};
 
 // a -> normalize(a): cotangent of a from the cotangent of the result
 __device__ __forceinline__ V3 normalize_bwd(V3 a, V3 g) {
@@ -411,14 +467,24 @@ __device__ __forceinline__ void sphere_root_bwd(V3 ro, V3 rd, V3 cen, float rad,
 }
 
 // Cotangents of the winner's hit distance and normal: p = ro + rd * t gets
-// `g_p` (the normal's own hit point included), the normal gets `g_nrm`.
+// `g_p` (the normal's own hit point included), the normal gets `g_nrm`. A
+// winner from outside passes both to its candidate rows.
+template <bool EXT>
 __device__ void geometry_adjoint(const Tables& tb, const SceneDims& P, const DiffBase& db,
                                  V3 ro, V3 rd, float time, int inside, const Bounce& b, V3 g_p,
-                                 V3 g_nrm, V3& d_ro, V3& d_rd, float& d_time, float* dt) {
+                                 V3 g_nrm, V3& d_ro, V3& d_rd, float& d_time, float* dt,
+                                 ExtCot& d_ext) {
   const int S = P.S, R = P.R, Tc = P.Tc, Bx = P.Bx, V = P.V;
   const float t = b.t;
   const int idx = b.w_idx;
   float g_t = 0.0f;
+  if (EXT && b.w_kind == W_EXT) {
+    d_ro = d_ro + g_p;
+    d_rd = d_rd + g_p * t;
+    d_ext.t = d_ext.t + dot(g_p, rd);
+    d_ext.n = d_ext.n + g_nrm;
+    return;
+  }
   if (b.w_kind == W_SPHERE) {
     V3 c0, c1;
     float fmv;
@@ -658,12 +724,15 @@ __device__ void light_gen_adjoint(const Tables& tb, const SceneDims& P, const Di
   acc(dt, db.sph_rad + lidx, g_r);
 }
 
-// Adjoint of one bounce (physics.cuh::bounce_physics) on a lane that hit:
+// Adjoint of one bounce (physics.cuh::bounce_physics_t) on a lane that hit:
 // from the cotangents of p, new_rd, weight and emitted to those of ro, rd,
-// time (added to d_*) and of the table entries (added to dt).
-__device__ void physics_adjoint(const Tables& tb, const SceneDims& P, V3 ro, V3 rd, float time,
-                                int inside, uint32_t keys_b, const Bounce& b, V3 g_p, V3 g_nrd,
-                                V3 g_w, V3 g_em, V3& d_ro, V3& d_rd, float& d_time, float* dt) {
+// time (added to d_*), of the table entries (added to dt) and of the
+// candidate from outside (added to d_ext).
+template <bool EXT, bool EXT_MAT, bool IMAGE>
+__device__ void physics_adjoint(const Tables& tb, const SceneDims& P, const ExtCand& ext, V3 ro,
+                                V3 rd, float time, int inside, uint32_t keys_b, const Bounce& b,
+                                V3 g_p, V3 g_nrd, V3 g_w, V3 g_em, V3& d_ro, V3& d_rd,
+                                float& d_time, float* dt, ExtCot& d_ext) {
   const DiffBase db = diff_base(P);
   const V3 p = b.p, nrm = b.nrm;
   const V3 zero3 = v3(0.0f, 0.0f, 0.0f);
@@ -706,6 +775,20 @@ __device__ void physics_adjoint(const Tables& tb, const SceneDims& P, V3 ro, V3 
     float turb = fabsf(turb_signed);
     albedo = v3(turb, turb, turb);
     use_turb = true;
+  }
+  // an image texel is a constant: the lane was shaded with albedo 1
+  bool img_lane = false;
+  if (IMAGE && ttype == (float)TEX_IMAGE && mtype != (float)MAT_DIELECTRIC &&
+      mtype != (float)MAT_DIFFUSE_LIGHT && !(EXT_MAT && b.t == ext.t)) {
+    albedo = v3(1.0f, 1.0f, 1.0f);
+    img_lane = true;
+  }
+  // a winner from outside brings its material: its cotangents go to the rows
+  const bool is_ext = EXT_MAT && b.t == ext.t;
+  if (is_ext) {
+    mtype = ext.mtype;
+    mparam = ext.mparam;
+    albedo = v3(ext.ar, ext.ag, ext.ab);
   }
 
   V3 g_alb = zero3;
@@ -888,24 +971,33 @@ __device__ void physics_adjoint(const Tables& tb, const SceneDims& P, V3 ro, V3 
     }
   }
 
-  // albedo -> texture colours, or through the turbulence to p
-  if (use_turb) {
-    float g_turb = g_alb.x + g_alb.y + g_alb.z;
-    float s = turb_signed > 0.0f ? 1.0f : (turb_signed < 0.0f ? -1.0f : 0.0f);
-    g_p = g_p + turb_grad * (s * g_turb * tscale);
-  } else if (has_tex) {
-    acc3(dt, (use_c1 ? db.tex_c1 : db.tex_c0) + 3 * xi, g_alb);
+  // albedo -> the candidate's rows, texture colours, or through the
+  // turbulence to p
+  if (is_ext) {
+    d_ext.alb = d_ext.alb + g_alb;
+    d_ext.mparam = d_ext.mparam + g_mparam;
+  } else {
+    if (use_turb) {
+      float g_turb = g_alb.x + g_alb.y + g_alb.z;
+      float s = turb_signed > 0.0f ? 1.0f : (turb_signed < 0.0f ? -1.0f : 0.0f);
+      g_p = g_p + turb_grad * (s * g_turb * tscale);
+    } else if (has_tex && !img_lane) {
+      acc3(dt, (use_c1 ? db.tex_c1 : db.tex_c0) + 3 * xi, g_alb);
+    }
+    if (has_mat) acc(dt, db.mat + w_mat, g_mparam);
   }
-  if (has_mat) acc(dt, db.mat + w_mat, g_mparam);
 
-  geometry_adjoint(tb, P, db, ro, rd, time, inside, b, g_p, g_nrm, d_ro, d_rd, d_time, dt);
+  geometry_adjoint<EXT>(tb, P, db, ro, rd, time, inside, b, g_p, g_nrm, d_ro, d_rd, d_time, dt,
+                        d_ext);
 }
 
 // The cotangent of one sub-step's entry state from that of its exit state.
 // g_sum is the cotangent of the sum rows, the same for every sub-step.
-__device__ void substep_adjoint(const Tables& tb, const AdParams& P, const LaneState& st,
-                                const SubRec& rec, V3 g_sum, V3& g_ro, V3& g_rd, float& g_time,
-                                V3& g_beta, V3& g_rad, float* dt) {
+template <bool EXT, bool EXT_MAT, bool IMAGE>
+__device__ void substep_adjoint(const Tables& tb, const AdParams& P, const ExtCand& ext,
+                                const Atlas& atlas, const LaneState& st, const SubRec& rec,
+                                V3 g_sum, V3& g_ro, V3& g_rd, float& g_time, V3& g_beta,
+                                V3& g_rad, float* dt, ExtCot& d_ext) {
   if (!st.alive) return;  // a dead lane passes its state through
   const Bounce& b = rec.b;
   const V3 zero3 = v3(0.0f, 0.0f, 0.0f);
@@ -914,6 +1006,8 @@ __device__ void substep_adjoint(const Tables& tb, const AdParams& P, const LaneS
     g_ro = g_rd = g_beta = g_rad = zero3;
     g_time = 0.0f;
   }
+  V3 texel;
+  if (IMAGE && rec.cont && pending_texel(atlas, b, texel)) g_beta = g_beta * texel;
   V3 G_rad = rec.take ? g_rad + g_sum : g_rad;
   V3 d_ro = zero3, d_rd = zero3, g_p = zero3, g_nrd = zero3;
   if (rec.cont) {
@@ -941,8 +1035,9 @@ __device__ void substep_adjoint(const Tables& tb, const AdParams& P, const LaneS
     g_em = G_rad * st.beta;
   }
   if (b.hit && (rec.cont0 || b.is_light))
-    physics_adjoint(tb, P, st.ro, st.rd, st.time, st.inside, rec.keys_b, b, g_p, g_nrd, g_w,
-                    g_em, d_ro, d_rd, d_time, dt);
+    physics_adjoint<EXT, EXT_MAT, IMAGE>(tb, P, ext, st.ro, st.rd, st.time, st.inside,
+                                         rec.keys_b, b, g_p, g_nrd, g_w, g_em, d_ro, d_rd,
+                                         d_time, dt, d_ext);
   g_ro = d_ro;
   g_rd = d_rd;
   g_time = d_time;
@@ -950,22 +1045,28 @@ __device__ void substep_adjoint(const Tables& tb, const AdParams& P, const LaneS
   g_rad = G_rad;
 }
 
-__device__ void lane_backward(const Tables& tb, const AdParams& P, const float* __restrict__ res,
-                              const int* __restrict__ i_in, const int* __restrict__ k_in,
-                              const int* __restrict__ pix_in, const int* __restrict__ sb_in,
-                              const float* __restrict__ cot, float* __restrict__ d_f, float* dt,
-                              int lane) {
+template <bool EXT, bool EXT_MAT, bool IMAGE>
+__device__ void lane_backward(const Tables& tb, const AdParams& P, const Atlas& atlas,
+                              const float* __restrict__ res, const int* __restrict__ i_in,
+                              const int* __restrict__ k_in, const int* __restrict__ pix_in,
+                              const int* __restrict__ sb_in, const float* __restrict__ ext_in,
+                              const float* __restrict__ cot, float* __restrict__ d_f,
+                              float* __restrict__ d_ext_out, float* dt, int lane) {
+  // the ext modes take one sub-step a launch
+  constexpr int KS = EXT ? 1 : MAX_KSUB;
   const int n = P.n;
   const uint32_t pix = (uint32_t)pix_in[lane];
   const int sampbase = sb_in[lane];
-  LaneState st[MAX_KSUB];
-  SubRec rec[MAX_KSUB];
+  LaneState st[KS];
+  SubRec rec[KS];
   LaneState s = load_state(res, n, i_in, k_in, n, lane);
+  const ExtCand ext = load_ext<EXT, EXT_MAT>(ext_in, n, lane);
   V3 summ = v3(0.0f, 0.0f, 0.0f);
   float nvalid = 0.0f, rays = 0.0f;
-  for (int j = 0; j < P.k_sub; ++j) {
+  for (int j = 0; j < P.k_sub && j < KS; ++j) {
     st[j] = s;
-    ad_substep(tb, P, pix, sampbase, P.t_step * P.k_sub + j, s, summ, nvalid, rays, &rec[j]);
+    ad_substep<EXT, EXT_MAT, IMAGE>(tb, P, ext, atlas, pix, sampbase, P.t_step * P.k_sub + j, s,
+                                    summ, nvalid, rays, &rec[j]);
   }
   V3 g_sum = v3(cot[lane], cot[n + lane], cot[2 * n + lane]);
   V3 g_ro = v3(cot[A_RO * n + lane], cot[(A_RO + 1) * n + lane], cot[(A_RO + 2) * n + lane]);
@@ -974,8 +1075,10 @@ __device__ void lane_backward(const Tables& tb, const AdParams& P, const float* 
   V3 g_beta = v3(cot[A_BETA * n + lane], cot[(A_BETA + 1) * n + lane],
                  cot[(A_BETA + 2) * n + lane]);
   V3 g_rad = v3(cot[A_RAD * n + lane], cot[(A_RAD + 1) * n + lane], cot[(A_RAD + 2) * n + lane]);
-  for (int j = P.k_sub - 1; j >= 0; --j)
-    substep_adjoint(tb, P, st[j], rec[j], g_sum, g_ro, g_rd, g_time, g_beta, g_rad, dt);
+  ExtCot d_ext{0.0f, 0.0f, v3(0.0f, 0.0f, 0.0f), v3(0.0f, 0.0f, 0.0f)};
+  for (int j = min(P.k_sub, KS) - 1; j >= 0; --j)
+    substep_adjoint<EXT, EXT_MAT, IMAGE>(tb, P, ext, atlas, st[j], rec[j], g_sum, g_ro, g_rd,
+                                         g_time, g_beta, g_rad, dt, d_ext);
   // sum, nvalid and rays enter additively: their cotangent passes through once
   store3(d_f, A_SUM, n, lane, g_sum);
   store3(d_f, A_RO, n, lane, g_ro);
@@ -986,20 +1089,35 @@ __device__ void lane_backward(const Tables& tb, const AdParams& P, const float* 
   d_f[A_ALIVE * n + lane] = 0.0f;  // alive feeds comparisons only
   d_f[A_NV * n + lane] = cot[A_NV * n + lane];
   d_f[A_RAYS * n + lane] = cot[A_RAYS * n + lane];
+  if (EXT) {
+    d_ext_out[E_T * n + lane] = d_ext.t;
+    store3(d_ext_out, E_N, n, lane, d_ext.n);
+    d_ext_out[E_MAT * n + lane] = 0.0f;
+  }
+  if (EXT_MAT) {
+    d_ext_out[E_MTYPE * n + lane] = 0.0f;
+    d_ext_out[E_MPARAM * n + lane] = d_ext.mparam;
+    store3(d_ext_out, E_ALB, n, lane, d_ext.alb);
+    d_ext_out[E_IMG * n + lane] = 0.0f;
+  }
 }
 
+template <bool EXT, bool EXT_MAT, bool IMAGE>
 __global__ void __launch_bounds__(MRT_AD_THREADS)
-ad_step_bwd_kernel(Tables tb, AdParams P, const float* __restrict__ res,
+ad_step_bwd_kernel(Tables tb, AdParams P, Atlas atlas, const float* __restrict__ res,
                    const int* __restrict__ i_in, const int* __restrict__ k_in,
                    const int* __restrict__ pix_in, const int* __restrict__ sb_in,
-                   const float* __restrict__ cot, float* __restrict__ d_f,
+                   const float* __restrict__ ext_in, const float* __restrict__ cot,
+                   float* __restrict__ d_f, float* __restrict__ d_ext,
                    float* __restrict__ d_tab) {
   __shared__ float s_dtab[MAX_NDIFF];
   const int n_diff = 4 * P.S + 3 * P.Tc + P.M + 6 * P.X;
   for (int i = threadIdx.x; i < n_diff; i += blockDim.x) s_dtab[i] = 0.0f;
   __syncthreads();
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < P.n) lane_backward(tb, P, res, i_in, k_in, pix_in, sb_in, cot, d_f, s_dtab, lane);
+  if (lane < P.n)
+    lane_backward<EXT, EXT_MAT, IMAGE>(tb, P, atlas, res, i_in, k_in, pix_in, sb_in, ext_in, cot,
+                                       d_f, d_ext, s_dtab, lane);
   __syncthreads();
   for (int i = threadIdx.x; i < n_diff; i += blockDim.x) {
     float v = s_dtab[i];
@@ -1036,50 +1154,113 @@ bool read_params(const int* ip, AdParams& P) {
          4 * P.S + 3 * P.Tc + P.M + 6 * P.X <= MAX_NDIFF && P.sq_off >= 1;
 }
 
+// The mode of a launch: 0 the fused class, 1 ext, 2 ext-material, 3 ext with
+// image textures, 4 ext-material with image textures; -1 for a combination
+// the kernels do not take (ext-material or image without ext, or more than
+// one sub-step a launch in an ext mode).
+int read_mode(const int* xp, const AdParams& P, const uint32_t* texels, Atlas& atlas) {
+  atlas = Atlas{texels, xp[X_N_IMG], xp[X_IH], xp[X_IW]};
+  const bool ext = xp[X_EXT] != 0, emat = xp[X_EXT_MAT] != 0, image = xp[X_IMAGE] != 0;
+  if (!ext) return emat || image ? -1 : 0;
+  if (P.k_sub != 1) return -1;
+  if (image && (texels == nullptr || atlas.n_img < 1 || atlas.ih < 1 || atlas.iw < 1)) return -1;
+  return image ? (emat ? 4 : 3) : (emat ? 2 : 1);
+}
+
 constexpr int INVALID_VALUE = 1;  // cudaErrorInvalidValue
+
+template <bool EXT, bool EXT_MAT, bool IMAGE>
+int launch_fwd(const Tables& tb, const AdParams& P, const Atlas& atlas, const float* f_in,
+               const int* i_in, const int* k_in, const int* pix, const int* sb, const float* ext,
+               float* f_out, int* i_out, int* k_out, void* stream) {
+  const int threads = MRT_AD_THREADS;
+  const int blocks = (P.n + threads - 1) / threads;
+  auto kernel = ad_step_fwd_kernel<EXT, EXT_MAT, IMAGE>;
+  MRT_LAUNCH(kernel, blocks, threads, 0, stream, tb, P, atlas, f_in, i_in, k_in, pix, sb, ext,
+             f_out, i_out, k_out);
+  return (int)cudaGetLastError();
+}
+
+template <bool EXT, bool EXT_MAT, bool IMAGE>
+int launch_bwd(const Tables& tb, const AdParams& P, const Atlas& atlas, const float* res,
+               const int* i_in, const int* k_in, const int* pix, const int* sb, const float* ext,
+               const float* cot, float* d_f, float* d_ext, float* d_tab, void* stream) {
+  const int threads = MRT_AD_THREADS;
+  const int blocks = (P.n + threads - 1) / threads;
+  auto kernel = ad_step_bwd_kernel<EXT, EXT_MAT, IMAGE>;
+  MRT_LAUNCH(kernel, blocks, threads, 0, stream, tb, P, atlas, res, i_in, k_in, pix, sb, ext, cot,
+             d_f, d_ext, d_tab);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" {
 
 // Both launch on `stream` and do not synchronise. Pointers are device
-// pointers; `ip` is a host array of Q_COUNT ints (AdParamIdx order). They
+// pointers; `ip` is a host array of Q_COUNT ints (AdParamIdx order), `xp` one
+// of X_COUNT (AdExtIdx order). `ext` is the (NE, n) candidate (NE_MAT rows in
+// ext-material mode) and `texels` the image atlas (n_img x ih x iw texels
+// 0x00RRGGBB), each unused (and may be null) in the modes without them. They
 // return the launch's cudaError_t (0 on success).
 
 // One scan step forward: f (19, n), ist (3, n), keys (n) -> *_out.
 int mrt_ad_step_fwd(const float* sph, const float* rect, const float* tri, const float* box,
                     const float* vol, const float* mat, const float* tex, const float* cam,
                     const float* ptab, const float* f_in, const int* i_in, const int* k_in,
-                    const int* pix, const int* sb, float* f_out, int* i_out, int* k_out,
-                    const int* ip, void* stream) {
+                    const int* pix, const int* sb, const float* ext, const uint32_t* texels,
+                    float* f_out, int* i_out, int* k_out, const int* ip, const int* xp,
+                    void* stream) {
   Tables tb{sph, rect, tri, box, vol, mat, tex, cam, ptab};
   AdParams P;
+  Atlas atlas;
   if (!read_params(ip, P)) return INVALID_VALUE;
+  const int mode = read_mode(xp, P, texels, atlas);
+  if (mode < 0 || (mode > 0 && ext == nullptr)) return INVALID_VALUE;
   if (P.n <= 0) return 0;
-  const int threads = MRT_AD_THREADS;
-  const int blocks = (P.n + threads - 1) / threads;
-  MRT_LAUNCH(ad_step_fwd_kernel, blocks, threads, 0, stream, tb, P, f_in, i_in, k_in, pix, sb,
-             f_out, i_out, k_out);
-  return (int)cudaGetLastError();
+  switch (mode) {
+    case 0: return launch_fwd<false, false, false>(tb, P, atlas, f_in, i_in, k_in, pix, sb, ext,
+                                                   f_out, i_out, k_out, stream);
+    case 1: return launch_fwd<true, false, false>(tb, P, atlas, f_in, i_in, k_in, pix, sb, ext,
+                                                  f_out, i_out, k_out, stream);
+    case 2: return launch_fwd<true, true, false>(tb, P, atlas, f_in, i_in, k_in, pix, sb, ext,
+                                                 f_out, i_out, k_out, stream);
+    case 3: return launch_fwd<true, false, true>(tb, P, atlas, f_in, i_in, k_in, pix, sb, ext,
+                                                 f_out, i_out, k_out, stream);
+    default: return launch_fwd<true, true, true>(tb, P, atlas, f_in, i_in, k_in, pix, sb, ext,
+                                                 f_out, i_out, k_out, stream);
+  }
 }
 
 // The step's backward from its entry state: residual rows res (13, n) = ro rd
-// time beta rad alive, ist (3, n), keys (n), cotangent cot (19, n) -> d_f
-// (19, n) written, d_tab (n_diff) ADDED to.
+// time beta rad alive, ist (3, n), keys (n), the candidate ext, cotangent cot
+// (19, n) -> d_f (19, n) and, in an ext mode, d_ext (NE, n) written, d_tab
+// (n_diff) ADDED to.
 int mrt_ad_step_bwd(const float* sph, const float* rect, const float* tri, const float* box,
                     const float* vol, const float* mat, const float* tex, const float* cam,
                     const float* ptab, const float* res, const int* i_in, const int* k_in,
-                    const int* pix, const int* sb, const float* cot, float* d_f, float* d_tab,
-                    const int* ip, void* stream) {
+                    const int* pix, const int* sb, const float* ext, const uint32_t* texels,
+                    const float* cot, float* d_f, float* d_ext, float* d_tab, const int* ip,
+                    const int* xp, void* stream) {
   Tables tb{sph, rect, tri, box, vol, mat, tex, cam, ptab};
   AdParams P;
+  Atlas atlas;
   if (!read_params(ip, P)) return INVALID_VALUE;
+  const int mode = read_mode(xp, P, texels, atlas);
+  if (mode < 0 || (mode > 0 && (ext == nullptr || d_ext == nullptr))) return INVALID_VALUE;
   if (P.n <= 0) return 0;
-  const int threads = MRT_AD_THREADS;
-  const int blocks = (P.n + threads - 1) / threads;
-  MRT_LAUNCH(ad_step_bwd_kernel, blocks, threads, 0, stream, tb, P, res, i_in, k_in, pix, sb,
-             cot, d_f, d_tab);
-  return (int)cudaGetLastError();
+  switch (mode) {
+    case 0: return launch_bwd<false, false, false>(tb, P, atlas, res, i_in, k_in, pix, sb, ext,
+                                                   cot, d_f, d_ext, d_tab, stream);
+    case 1: return launch_bwd<true, false, false>(tb, P, atlas, res, i_in, k_in, pix, sb, ext,
+                                                  cot, d_f, d_ext, d_tab, stream);
+    case 2: return launch_bwd<true, true, false>(tb, P, atlas, res, i_in, k_in, pix, sb, ext,
+                                                 cot, d_f, d_ext, d_tab, stream);
+    case 3: return launch_bwd<true, false, true>(tb, P, atlas, res, i_in, k_in, pix, sb, ext,
+                                                 cot, d_f, d_ext, d_tab, stream);
+    default: return launch_bwd<true, true, true>(tb, P, atlas, res, i_in, k_in, pix, sb, ext,
+                                                 cot, d_f, d_ext, d_tab, stream);
+  }
 }
 
 const char* mrt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from miniraytracer_tpu_torch.ops import bounce as B
+from miniraytracer_tpu_torch.ops import intersect as ix
 from miniraytracer_tpu_torch.ops import noise, rng
 from miniraytracer_tpu_torch.ops.vecmath import V3, vwhere
 from miniraytracer_tpu_torch.scene import types as T
@@ -91,7 +92,7 @@ def sample_texture(scene: T.SceneData, tex_id, u, v, p: V3, ptab=None, accel=Non
     here when not given)."""
     tex_id = tex_id.long()
     ttype = scene.tex_type[tex_id]
-    c0r, c1r = scene.tex_c0[tex_id], scene.tex_c1[tex_id]
+    c0r, c1r = ix.gather(scene.tex_c0, tex_id), ix.gather(scene.tex_c1, tex_id)
     c0 = V3(c0r[:, 0], c0r[:, 1], c0r[:, 2])
     c1 = V3(c1r[:, 0], c1r[:, 1], c1r[:, 2])
     scale = scene.tex_scale[tex_id]

@@ -41,7 +41,7 @@ import torch
 
 from miniraytracer_tpu_torch.models import camera as cam_mod
 from miniraytracer_tpu_torch.ops import noise, rng
-from miniraytracer_tpu_torch.ops.vecmath import (V3, sphere_uv, vcross, vdot, vluminance,
+from miniraytracer_tpu_torch.ops.vecmath import (V3, sphere_uv, vcross, vdiv, vdot, vluminance,
                                                  vnormalize, vonb_from_w, vonb_l2w,
                                                  vreflect, vrefract, vsdot, vsqrt, vwhere)
 from miniraytracer_tpu_torch.scene import types as T
@@ -705,13 +705,14 @@ class LaneState(NamedTuple):
 
 def film_coords(pix, samp, width, height, sq):
     """Stratified film coordinates (main.cpp:316-332) of absolute sample
-    `samp` of pixel `pix` (index x + y*width, y from the bottom)."""
+    `samp` of pixel `pix` (index x + y*width, y from the bottom). The
+    divisors are tensors, as in `vecmath.sphere_uv`: the kernels divide."""
     ci = torch.clamp(samp, 0, sq * sq - 1)
-    off_x = (torch.div(ci, sq, rounding_mode="floor").to(torch.float32) + 0.5) / sq
-    off_y = ((ci % sq).to(torch.float32) + 0.5) / sq
+    off_x = vdiv(torch.div(ci, sq, rounding_mode="floor").to(torch.float32) + 0.5, sq)
+    off_y = vdiv((ci % sq).to(torch.float32) + 0.5, sq)
     xpix = (pix % width).to(torch.float32)
     ypix = torch.div(pix, width, rounding_mode="floor").to(torch.float32)
-    return (xpix + off_x) / width, (ypix + off_y) / height
+    return vdiv(xpix + off_x, width), vdiv(ypix + off_y, height)
 
 
 def advance(alive, hit, scattered, add_emitted, emitted: V3, weight: V3, background: V3,
@@ -749,12 +750,18 @@ def shade_advance(meta, tabs, ptab, ro: V3, rd: V3, time, inside, keys_b, depth_
         alive, b.hit, scattered, ~(scattered & b.is_specular), b.emitted, b.weight,
         background_color(meta["use_sky"], rd), beta, radiance)
     if b.img_id is not None:
-        # only continuing lanes carry a pending image albedo (a lane that
-        # ends at the depth cap returns its emission only)
-        pend = cont & (b.img_id >= 0.0)
-        idx = torch.where(pend, b.img_id, 0.0).long().clamp(0, texels.numel() - 1)
-        beta = vwhere(pend, beta * texel_rgb(texels[idx]), beta)
+        beta = pending_texel(b.img_id, cont, beta, texels)
     return b, cont, beta, radiance
+
+
+def pending_texel(img_id, cont, beta: V3, texels) -> V3:
+    """`beta` with the image texel of each hit (`BounceOut.img_id` >= 0)
+    multiplied in, on the lanes that go on (`cont`): only they carry a
+    pending image albedo (a lane that ends at the depth cap returns its
+    emission only)."""
+    pend = cont & (img_id >= 0.0)
+    idx = torch.where(pend, img_id, 0.0).long().clamp(0, texels.numel() - 1)
+    return vwhere(pend, beta * texel_rgb(texels[idx]), beta)
 
 
 def wave_step(meta, tabs, ptab, cam, width, height, sq, max_bounces, max_lum,

@@ -909,3 +909,274 @@ def tri_hit_culled_auto(cull, ro: V3, rd: V3, inside, tmin, t_seed=None, plain=F
     else:
         sweep = flash_tri_hit_streamed_plain if plain else flash_tri_hit_streamed
     return sweep(cull, ro, rd, inside, tmin, t_seed)
+
+
+# ---------------------------------------------------------------------------
+# Differentiable sweeps
+# ---------------------------------------------------------------------------
+# The hit distance t of the WINNING primitive is the sweeps' only continuous
+# output; which primitive wins is discrete and carries no cotangent. Each
+# sweep below is a torch.autograd.Function whose forward is a sweep above (its
+# kernel on CUDA tensors) and whose backward is tensor operations on the
+# winner's coefficient row (the JAX package's `_tri_bwd`, `_sph_bwd`,
+# `_box_bwd`, which are XLA there too):
+#
+#   triangles: t = tn / det           dt/dtn = 1/det, dt/ddet = -t/det
+#   spheres:   t = -b + s*sqrt(b^2 - c), s the root's sign:
+#              dt/db = -1 + s*b/sq,   dt/dc = -s/(2*sq)
+#   boxes:     t = (bound - lo_a) / ld_a on the winner face (axis a) in the
+#              box's frame, lo_a and ld_a linear in (ro - offset) and rd
+#
+# The tables' cotangent is the winner rows' sums over lanes (`index_add_`).
+# A lane without a hit contributes exactly zero, but its primal inputs may be
+# NaN (dead lanes are swept as NaN rays) and its index is the placeholder 0:
+# the backward masks the PRIMALS of such lanes first, else 0 x NaN products
+# put NaN into row 0's cotangent (the JAX package's measured book2 fault,
+# "grads_finite=False"). The clustered sweeps share the dense sweeps'
+# backward: it depends only on the winner, not on how it was found, so their
+# cluster tables (permuted copies of the coefficients) get no cotangent and
+# the gradient flows to the coefficients in scene order.
+
+
+def _tri_features_vjp(ro: V3, rd: V3, df):
+    """Cotangents of ro and rd from that of `ray_features` ((N, 16))."""
+    d_ro = [df[:, 1 + i] + sum(df[:, 7 + 3 * i + j] * rd[j] for j in range(3))
+            for i in range(3)]
+    d_rd = [df[:, 4 + j] + sum(df[:, 7 + 3 * i + j] * ro[i] for i in range(3))
+            for j in range(3)]
+    return V3(*d_ro), V3(*d_rd)
+
+
+def _sphere_features_vjp(ro: V3, rd: V3, time, df):
+    """Cotangents of ro, rd and time from that of `sphere_ray_features`."""
+    d_ro = V3(*(df[:, 1 + k] + df[:, 7] * rd[k] + 2.0 * df[:, 8] * ro[k] + df[:, 11 + k] * time
+                for k in range(3)))
+    d_rd = V3(*(df[:, 4 + k] + df[:, 7] * ro[k] + df[:, 14 + k] * time for k in range(3)))
+    d_time = (df[:, 9] + 2.0 * df[:, 10] * time
+              + sum(df[:, 11 + k] * ro[k] + df[:, 14 + k] * rd[k] for k in range(3)))
+    return d_ro, d_rd, d_time
+
+
+def _mask_primals(t, idx, ro: V3, rd: V3, time=None):
+    """(hit, ro, rd, time, idx) with the lanes that hit nothing set to finite
+    placeholders (see above)."""
+    hit = t < INF * 0.5
+    ro = V3(*(torch.where(hit, c, 0.0) for c in ro))
+    rd = V3(*(torch.where(hit, c, 1.0) for c in rd))
+    time = None if time is None else torch.where(hit, time, 0.0)
+    return hit, ro, rd, time, torch.where(hit, idx, 0).long()
+
+
+def _rows_sum(table_rows, f):
+    return (table_rows * f.t()).sum(1)
+
+
+class _TriHitD(torch.autograd.Function):
+    """(t, idx) of `sweep(ro, rd)` with the VJP of t w.r.t. the four
+    coefficient tables and the rays."""
+
+    @staticmethod
+    def forward(ctx, sweep, c_det, c_uu, c_vv, c_tn, rox, roy, roz, rdx, rdy, rdz):
+        t, idx = sweep(V3(rox, roy, roz), V3(rdx, rdy, rdz))
+        ctx.save_for_backward(c_det, c_tn, rox, roy, roz, rdx, rdy, rdz, t, idx)
+        ctx.mark_non_differentiable(idx)
+        return t, idx
+
+    @staticmethod
+    def backward(ctx, gt, _g_idx):
+        c_det, c_tn, rox, roy, roz, rdx, rdy, rdz, t, idx = ctx.saved_tensors
+        hit, ro, rd, _, idx = _mask_primals(t, idx, V3(rox, roy, roz), V3(rdx, rdy, rdz))
+        f = ray_features(ro, rd)
+        rows_det, rows_tn = c_det[idx], c_tn[idx]
+        det_w = _rows_sum(rows_det, f)
+        safe_det = torch.where(torch.abs(det_w) > TRI_EPS, det_w, 1.0)
+        g = torch.where(hit, gt / safe_det, 0.0)
+        ts = torch.where(hit, t, 0.0)
+        d_ro, d_rd = _tri_features_vjp(ro, rd, (rows_tn - rows_det * ts[:, None]) * g[:, None])
+        w_tn = f.t() * g[:, None]
+        d_det = d_tn = None
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[4]:
+            d_tn = torch.zeros_like(c_tn).index_add_(0, idx, w_tn)
+            d_det = torch.zeros_like(c_det).index_add_(0, idx, -w_tn * ts[:, None])
+        return (None, d_det, None, None, d_tn, *d_ro, *d_rd)
+
+
+class _SphereHitD(torch.autograd.Function):
+    """(t, idx) of `sweep(ro, rd, time)` with the VJP of t w.r.t. the two
+    coefficient tables and the rays."""
+
+    @staticmethod
+    def forward(ctx, sweep, cb, cc, rox, roy, roz, rdx, rdy, rdz, time):
+        t, idx = sweep(V3(rox, roy, roz), V3(rdx, rdy, rdz), time)
+        ctx.save_for_backward(cb, cc, rox, roy, roz, rdx, rdy, rdz, time, t, idx)
+        ctx.mark_non_differentiable(idx)
+        return t, idx
+
+    @staticmethod
+    def backward(ctx, gt, _g_idx):
+        cb, cc, rox, roy, roz, rdx, rdy, rdz, time, t, idx = ctx.saved_tensors
+        hit, ro, rd, time, idx = _mask_primals(t, idx, V3(rox, roy, roz),
+                                               V3(rdx, rdy, rdz), time)
+        f = sphere_ray_features(ro, rd, time)
+        rows_b, rows_c = cb[idx], cc[idx]
+        b_w, c_w = _rows_sum(rows_b, f), _rows_sum(rows_c, f)
+        disc = b_w * b_w - c_w
+        sq_ok = disc > 1e-12
+        sq = torch.sqrt(torch.where(sq_ok, disc, 1.0))
+        s = torch.where(t + b_w > 0, 1.0, -1.0)  # t_front = -b - sq <= -b <= t_back
+        g = torch.where(hit, gt, 0.0)
+        g_b = g * torch.where(sq_ok, -1.0 + s * b_w / sq, 0.0)
+        g_c = g * torch.where(sq_ok, -s / (2.0 * sq), 0.0)
+        d_ro, d_rd, d_time = _sphere_features_vjp(
+            ro, rd, time, rows_b * g_b[:, None] + rows_c * g_c[:, None])
+        d_cb = d_cc = None
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            d_cb = torch.zeros_like(cb).index_add_(0, idx, f.t() * g_b[:, None])
+            d_cc = torch.zeros_like(cc).index_add_(0, idx, f.t() * g_c[:, None])
+        return (None, d_cb, d_cc, *d_ro, *d_rd, d_time)
+
+
+def _detached(coeffs):
+    return tuple(c.detach() for c in coeffs)
+
+
+def tri_hit_d(route, tables, coeffs, ro: V3, rd: V3, inside, tmin, t_seed=None, plain=False):
+    """Differentiable closest triangle hit over the sweep of `route`: "tri"
+    (the dense sweep B7 over `tables` = the coefficient tables) or
+    "tri_cull" (the clustered sweep of `tri_hit_culled_auto` over `tables` =
+    `tri_cull_build`'s, seeded with `t_seed`). `coeffs` are the four tables
+    of `tri_coefficients` in scene order, which get the gradient; None runs
+    the sweep alone, without one. Where the seed is not beaten, t is INF and
+    idx 0. The kernels for CUDA tensors, their plain versions for CPU
+    tensors or with `plain`."""
+    seed = None if t_seed is None else t_seed.detach()
+
+    def sweep(ro_, rd_):
+        if route == "tri":
+            return (flash_tri_hit_plain if plain else flash_tri_hit)(
+                _detached(tables), ro_, rd_, inside, tmin)
+        t, idx = tri_hit_culled_auto(tables, ro_, rd_, inside, tmin, seed, plain=plain)
+        if seed is None:
+            return t, idx
+        won = t < seed
+        return torch.where(won, t, INF), torch.where(won, idx, 0)
+
+    if coeffs is None:
+        return sweep(ro, rd)
+    return _TriHitD.apply(sweep, *coeffs, *ro, *rd)
+
+
+def sphere_hit_d(route, tables, coeffs, ro: V3, rd: V3, time, inside, tmin, plain=False):
+    """Differentiable closest sphere hit over the sweep of `route` (a key of
+    `hybrid.hybrid_accel`: "sph" dense B8, "sph_gate" B13, "sph_cull" B12)
+    over `tables` (the coefficient tables, or `sph_cull_build`'s); `coeffs`
+    are `sphere_coefficients` in scene order, which get the gradient (None:
+    the sweep alone, without one)."""
+    from miniraytracer_tpu_torch.ops import intersect as ix
+
+    fn = globals()[ix._SPHERE_SWEEPS[route] + ("_plain" if plain else "")]
+    tables = _detached(tables) if route == "sph" else tables
+    sweep = lambda ro_, rd_, time_: fn(tables, ro_, rd_, time_, inside, tmin)
+    if coeffs is None:
+        return sweep(ro, rd, time)
+    return _SphereHitD.apply(sweep, *coeffs, *ro, *rd, time)
+
+
+def flash_tri_hit_d(coeffs, ro: V3, rd: V3, inside, tmin):
+    """Differentiable `flash_tri_hit` (gradients w.r.t. coeffs and rays)."""
+    return tri_hit_d("tri", coeffs, coeffs, ro, rd, inside, tmin)
+
+
+def flash_sphere_hit_d(coeffs, ro: V3, rd: V3, time, inside, tmin):
+    """Differentiable `flash_sphere_hit`."""
+    return sphere_hit_d("sph", coeffs, coeffs, ro, rd, time, inside, tmin)
+
+
+def flash_tri_hit_culled_d(cull, coeffs, ro: V3, rd: V3, inside, tmin):
+    """Differentiable closest triangle hit through the clustered sweep of
+    `tri_hit_culled_auto` (B10, B11 past `resident_ok`): the same results as
+    `flash_tri_hit_d`. The JAX package always takes the streamed kernel here,
+    for a memory limit of its core that this card does not have."""
+    return tri_hit_d("tri_cull", cull, coeffs, ro, rd, inside, tmin)
+
+
+def flash_sphere_hit_culled_d(cull, coeffs, ro: V3, rd: V3, time, inside, tmin):
+    """Differentiable closest sphere hit through the clustered sweeps: the
+    gated one below 4096 (padded) spheres, else the streamed one."""
+    route = "sph_gate" if cull[0][0].shape[0] < 4096 else "sph_cull"
+    return sphere_hit_d(route, cull, coeffs, ro, rd, time, inside, tmin)
+
+
+def _box_sweep(blo, bhi, bcs, boff, bact, ro: V3, rd: V3, tmin):
+    """(t, idx) of the nearest box over all boxes (`intersect.box_ts`)."""
+    import types
+
+    from miniraytracer_tpu_torch.ops import intersect as ix
+
+    n, dev = ro.x.shape[0], ro.x.device
+    shim = types.SimpleNamespace(box_lo=blo, box_hi=bhi, box_cs=bcs, box_off=boff,
+                                 box_active=bact)
+    rays = ix.Rays(ro=ro, rd=rd, time=torch.zeros_like(ro.x),
+                   inside=torch.zeros((n,), dtype=torch.int32, device=dev))
+    tmax0 = torch.full((n,), INF, dtype=torch.float32, device=dev)
+    return ix._chunked_min(lambda s, c: ix.box_ts(shim, rays, s, c, tmin, tmax0),
+                           blo.shape[0], n, dev)
+
+
+class _BoxHitD(torch.autograd.Function):
+    """(t, idx) of the box sweep with the VJP of t w.r.t. the box tables and
+    the rays: only the winner face of each lane is re-derived."""
+
+    @staticmethod
+    def forward(ctx, tmin, blo, bhi, bcs, boff, bact, rox, roy, roz, rdx, rdy, rdz):
+        ro, rd = V3(rox, roy, roz), V3(rdx, rdy, rdz)
+        t, idx = _box_sweep(blo, bhi, bcs, boff, bact, ro, rd, tmin)
+        ctx.save_for_backward(blo, bhi, bcs, boff, rox, roy, roz, rdx, rdy, rdz, t, idx)
+        ctx.mark_non_differentiable(idx)
+        return t, idx
+
+    @staticmethod
+    def backward(ctx, gt, _g_idx):
+        from miniraytracer_tpu_torch.ops import intersect as ix
+
+        blo, bhi, bcs, boff, rox, roy, roz, rdx, rdy, rdz, t, idx = ctx.saved_tensors
+        hit, ro, rd, _, idx = _mask_primals(t, idx, V3(rox, roy, roz), V3(rdx, rdy, rdz))
+        ts = torch.where(hit, t, 0.0)
+        lo_b, hi_b, sn, cs, of = blo[idx], bhi[idx], bcs[idx, 0], bcs[idx, 1], boff[idx]
+        ox, oy, oz = ro.x - of[:, 0], ro.y - of[:, 1], ro.z - of[:, 2]
+        lo = (cs * ox - sn * oz, oy, cs * oz + sn * ox)
+        ld = (cs * rd.x - sn * rd.z, rd.y, cs * rd.z + sn * rd.x)
+        # the winner face: the candidate nearest t (intersect.box_record)
+        cands = ix._box_face_ts(lo, ld, tuple(lo_b.t()), tuple(hi_b.t()))
+        face = torch.argmin(torch.abs(cands - ts[None, :]), dim=0)
+        axis = torch.div(face, 2, rounding_mode="floor")
+        ld_a = torch.gather(torch.stack(ld), 0, axis[None, :])[0]
+        inv = 1.0 / torch.where(torch.abs(ld_a) > 1e-12, ld_a,
+                                torch.where(ld_a >= 0, 1e-12, -1e-12))
+        g = torch.where(hit, gt, 0.0)
+        d_bound = g * inv
+        d_lo = [torch.where(axis == a, -d_bound, 0.0) for a in range(3)]
+        d_ld = [torch.where(axis == a, -g * ts * inv, 0.0) for a in range(3)]
+        # lo0 = cs*ox - sn*oz, lo1 = oy, lo2 = cs*oz + sn*ox; ld likewise with rd
+        d_ro = V3(d_lo[0] * cs + d_lo[2] * sn, d_lo[1], -d_lo[0] * sn + d_lo[2] * cs)
+        d_rd = V3(d_ld[0] * cs + d_ld[2] * sn, d_ld[1], -d_ld[0] * sn + d_ld[2] * cs)
+        grads = [None] * 4
+        if any(ctx.needs_input_grad[1:5]):
+            d_sn = -d_lo[0] * oz + d_lo[2] * ox - d_ld[0] * rd.z + d_ld[2] * rd.x
+            d_cs = d_lo[0] * ox + d_lo[2] * oz + d_ld[0] * rd.x + d_ld[2] * rd.z
+            is_min = (face % 2 == 0).to(torch.float32)
+            d_b = torch.stack([torch.where(axis == a, d_bound, 0.0) for a in range(3)], 1)
+            rows = torch.cat([d_b * is_min[:, None], d_b * (1.0 - is_min[:, None]),
+                              torch.stack([d_sn, d_cs], 1),
+                              -torch.stack(list(d_ro), 1)], 1)  # off enters as ro - off
+            acc = torch.zeros((blo.shape[0], 11), dtype=rows.dtype,
+                              device=rows.device).index_add_(0, idx, rows)
+            grads = [acc[:, 0:3], acc[:, 3:6], acc[:, 6:8], acc[:, 8:11]]
+        return (None, *grads, None, *d_ro, *d_rd)
+
+
+def box_hit_d(blo, bhi, bcs, boff, bact, ro: V3, rd: V3, tmin):
+    """Differentiable closest box hit (the box sweep of `intersect.box_ts`
+    in tensor operations, as in the JAX package): gradients w.r.t. the box
+    tables (lo, hi, (sin, cos), offset) and the rays."""
+    return _BoxHitD.apply(tmin, blo, bhi, bcs, boff, bact, *ro, *rd)

@@ -291,6 +291,20 @@ def hybrid_accel(scene: T.SceneData):
     return accel
 
 
+def ext_coefficients(scene: T.SceneData, accel):
+    """The coefficient tables of each sweep entry of `accel`
+    (`hybrid_accel`), in scene order and with the scene's autograd history:
+    what the differentiable sweeps give the gradient of their hit distance
+    to (`_external_candidate` with `coeffs`)."""
+    out = {}
+    for key in accel:
+        if key.startswith("sph"):
+            out[key] = flash.sphere_coefficients(scene)
+        else:
+            out[key] = flash.scene_tri_coefficients(scene)
+    return out
+
+
 def _const_miss_rows(n, emat, device):
     """Candidate rows of a scene with no external type: the miss record
     (t = INF, n = (1,0,0), mat 0), in ext-material mode with the -1 material
@@ -304,9 +318,15 @@ def _const_miss_rows(n, emat, device):
 
 
 def _external_candidate(scene, accel, rays: ix.Rays, alive, tmin, ptab=None,
-                        plain=False):
+                        plain=False, coeffs=None):
     """Sweep the external types (with the sweeps' plain versions if `plain`)
     and assemble the winner's record.
+
+    With `coeffs` (`ext_coefficients`), the sweeps are the differentiable
+    ones of `ops/flash.py` and the rows are differentiable in the rays, in
+    those coefficient tables and in the scene's tensors that the records and
+    the material read (the train step's candidate, `bounce_ad.ExtCandidate`);
+    the values are the same.
 
     Dead lanes are fed NaN rays: no test on a NaN passes, so they come back
     as misses. Returns NE rows of (N,): (t, nx, ny, nz, mat_f) with t == INF
@@ -326,16 +346,16 @@ def _external_candidate(scene, accel, rays: ix.Rays, alive, tmin, ptab=None,
     inf = torch.full_like(rays.time, INF)
     izero = torch.zeros_like(rays.inside)
 
-    sweep = lambda name: getattr(flash, name + "_plain" if plain else name)
+    cf = coeffs or {}
     t_s, i_s = inf, izero
     sph_key = next((k for k in ix._SPHERE_SWEEPS if k in accel), None)
     if sph_key:
-        t_s, i_s = sweep(ix._SPHERE_SWEEPS[sph_key])(
-            accel[sph_key], nan3, nand, rays.time, rays.inside, tmin)
+        t_s, i_s = flash.sphere_hit_d(sph_key, accel[sph_key], cf.get(sph_key), nan3, nand,
+                                      rays.time, rays.inside, tmin, plain=plain)
     t_t, i_t = inf, izero
-    if "tri" in accel:
-        t_t, i_t = sweep("flash_tri_hit")(accel["tri"], nan3, nand, rays.inside, tmin)
-    elif "tri_cull" in accel:
+    tri_key = next((k for k in ("tri", "tri_cull") if k in accel), None)
+    seed = None
+    if tri_key == "tri_cull":
         # seeded with the sphere winner and the nearest rect (a t-only sweep
         # of the real rays), so that clusters behind either are pruned; the
         # step kernel finds the rect again. A dead lane's seed is 0. Where
@@ -346,17 +366,16 @@ def _external_candidate(scene, accel, rays: ix.Rays, alive, tmin, ptab=None,
                                      scene.n_rects, n, rays.time.device)
             seed = torch.minimum(seed, t_r)
         seed = torch.where(alive, seed, 0.0)
-        t_t, i_t = flash.tri_hit_culled_auto(accel["tri_cull"], nan3, nand, rays.inside, tmin,
-                                             seed, plain=plain)
-        t_t = torch.where(t_t < seed, t_t, INF)
+    if tri_key:
+        t_t, i_t = flash.tri_hit_d(tri_key, accel[tri_key], cf.get(tri_key), nan3, nand,
+                                   rays.inside, tmin, seed, plain=plain)
 
     # a big box set: swept by tensor operations on the real rays (a NaN ray
     # would poison the minimum), dead lanes and misses masked afterwards
     t_b, i_b = inf, izero
     if ext_box:
-        t_b, i_b = ix._chunked_min(
-            lambda s, c: ix.box_ts(scene, rays, s, c, tmin, inf),
-            scene.n_boxes, n, rays.time.device)
+        t_b, i_b = flash.box_hit_d(scene.box_lo, scene.box_hi, scene.box_cs, scene.box_off,
+                                   scene.box_active, rays.ro, rays.rd, tmin)
         t_b = torch.where(alive & torch.isfinite(t_b), t_b, INF)
 
     # combine: on a tie sphere before triangle before box, as scene_hit
@@ -393,7 +412,7 @@ def _external_candidate(scene, accel, rays: ix.Rays, alive, tmin, ptab=None,
     if not emat:
         return ext_t, nx, ny, nz, torch.where(has, mat, 0).to(torch.float32)
     midx = mat.long()
-    mt, mp, mtex = scene.mat_type[midx], scene.mat_param[midx], scene.mat_tex[midx]
+    mt, mp, mtex = scene.mat_type[midx], ix.gather(scene.mat_param, midx), scene.mat_tex[midx]
     p = rays.ro + rays.rd * safe_t
     albedo = textures.sample_texture(scene, mtex, uu, vv, p, ptab)
     neg1 = zero - 1.0

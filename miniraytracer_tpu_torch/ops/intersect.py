@@ -61,8 +61,17 @@ class HitRecord(NamedTuple):
     hit: torch.Tensor  # (N,) bool
 
 
+def gather(table, idx):
+    """Rows `idx` of `table`: `index_select`, whose gradient sums the lanes
+    into the table with `index_add_`. (The gradient of `table[idx]` is an
+    accumulating `index_put_` that adds the lanes of one row one after the
+    other: many lanes that hit one primitive, the ground sphere, made it
+    take seconds a train step.)"""
+    return torch.index_select(table, 0, idx)
+
+
 def _rows(table, idx) -> V3:
-    r = table[idx]
+    r = gather(table, idx)
     return V3(r[:, 0], r[:, 1], r[:, 2])
 
 
@@ -115,7 +124,7 @@ def sphere_record(scene: T.SceneData, rays: Rays, t, idx):
     c0 = _rows(scene.sph_c0, idx)
     c1 = _rows(scene.sph_c1, idx)
     t0, t1 = scene.sph_t0[idx], scene.sph_t1[idx]
-    mov, rad = scene.sph_moving[idx], scene.sph_radius[idx]
+    mov, rad = scene.sph_moving[idx], gather(scene.sph_radius, idx)
     denom = torch.where(mov > 0, t1 - t0, 1.0)
     f = torch.where(mov > 0, (rays.time - t0) / denom, 0.0)
     cen = c0 + (c1 - c0) * f
@@ -408,14 +417,15 @@ def make_accel(scene: T.SceneData, differentiable: bool = False) -> dict:
     streamed sweep (B12, more); "perlin", the turbulence tables of
     `noise.noise_tables` (B6), for a scene with Perlin noise that is not
     `fast_perlin`. Empty for a scene that needs none. `differentiable=True`
-    raises: the sweeps' custom VJPs are not ported, and nothing is swept in
-    their place."""
+    raises: `scene_hit` does not route through the sweeps' VJP forms
+    (`flash.tri_hit_d`, `sphere_hit_d`, `box_hit_d`) yet, and nothing is swept
+    in their place."""
     from miniraytracer_tpu_torch.ops import flash, noise
 
     if differentiable:
         raise NotImplementedError(
-            "make_accel(differentiable=True): the custom-VJP sweeps of the AD "
-            "paths outside the fused class are not ported yet (ROADMAP.md A11)")
+            "make_accel(differentiable=True): the eager scene_hit does not route "
+            "through the custom-VJP sweeps yet (ROADMAP.md A11)")
     accel = {}
     if scene.n_tris >= FLASH_CULL_MIN_TRIS:
         accel["tri_cull"] = flash.scene_tri_cull(scene)

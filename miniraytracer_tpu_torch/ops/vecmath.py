@@ -180,15 +180,19 @@ def vasin(y: torch.Tensor) -> torch.Tensor:
     return vatan2(yc, vsqrt(torch.clamp_min(1.0 - yc * yc, 1e-30)))
 
 
+def vdiv(x: torch.Tensor, d) -> torch.Tensor:
+    """x / d for a Python number d as an elementwise division: on a CUDA
+    device torch divides by a host scalar as a multiplication by its
+    reciprocal, an ulp away from the kernels' IEEE division."""
+    return x / torch.full_like(x, float(d))
+
+
 def sphere_uv(n: V3):
-    """Spherical (u, v) of a unit normal (sphere.cpp:6-11), pole-safe. The
-    divisors are tensors: on a CUDA device torch divides by a host scalar as
-    a multiplication by its reciprocal, an ulp away from the kernels' IEEE
-    division, and (u, v) fix the texel."""
+    """Spherical (u, v) of a unit normal (sphere.cpp:6-11), pole-safe; (u, v)
+    fix the texel, so the divisions are `vdiv`'s."""
     phi = vatan2(n.z, n.x)
     ny = torch.clamp(n.y, -1.0, 1.0)
     at_pole = torch.abs(ny) >= 1.0
     theta = torch.where(at_pole, torch.sign(ny) * _HALF_PI,
                         vasin(torch.where(at_pole, 0.0, ny)))
-    two_pi = torch.full_like(phi, 4 * _HALF_PI)
-    return 0.5 - phi / two_pi, 0.5 + theta / (0.5 * two_pi)
+    return 0.5 - vdiv(phi, 4 * _HALF_PI), 0.5 + vdiv(theta, 2 * _HALF_PI)

@@ -2,10 +2,11 @@
 
 Port of the single-device part of `miniraytracer_tpu/parallel/train.py`
 (`dp = sp = 1`, no mesh): each step renders `spp_step` samples per pixel
-through the fused AD scan (`ops/bounce_ad.py`), takes the SSE loss against a
-target image over the pixels that completed a sample, and gets the gradients
-w.r.t. `TrainParams` (material albedo, emission, gloss / refraction index,
-sphere and triangle geometry) from the scan's hand-written backward kernel.
+through the fused AD scan (`ops/bounce_ad.py`; for a scene outside the fused
+class its hybrid-ext scan), takes the SSE loss against a target image over
+the pixels that completed a sample, and gets the gradients w.r.t.
+`TrainParams` (material albedo, emission, gloss / refraction index, sphere
+and triangle geometry) from the scan's hand-written backward kernel.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from miniraytracer_tpu_torch.ops import bounce_ad
+from miniraytracer_tpu_torch.ops import bounce_ad, hybrid
 from miniraytracer_tpu_torch.scene import types as T
 from miniraytracer_tpu_torch.utils.device import resolve
 
@@ -49,7 +50,7 @@ def params_from_numpy(fields: dict) -> TrainParams:
 
 def make_train_step(*, width: int, height: int, max_bounces: int,
                     scan_steps: int = 0, spp_step: int = 1, device=None,
-                    fused_ad=True):
+                    fused_ad=True, scene: T.SceneData | None = None):
     """The train step on one device.
 
     step(params, scene, target, sample0, lr) -> (params', loss, grads)
@@ -63,13 +64,30 @@ def make_train_step(*, width: int, height: int, max_bounces: int,
     pixels that completed at least one, divided by width*height*3), and
     returns the SGD update `p - lr*g`.
 
-    Only the fused AD path is ported: `fused_ad="ext"` (the hybrid-ext AD
-    step) and `fused_ad=False` (the unfused scans of the JAX package) raise.
+    `fused_ad=True` is the fused class's scan (`bounce.can_fuse` scenes);
+    `fused_ad="ext"` the hybrid-ext scan (`bounce_ad.can_fuse_ad_ext`
+    scenes: random_spheres, triangles, earth, book2_final), which needs the
+    concrete `scene` here, as in the JAX package: its structure makes the
+    compaction plan of ext-material mode once (`hybrid.smem_plan`), and the
+    step must be given a scene of that structure. `fused_ad=False` (the
+    unfused scans of the JAX package) raises: it is not ported.
     """
-    if fused_ad is not True:
+    if fused_ad is False:
         raise NotImplementedError(
-            f"fused_ad={fused_ad!r} is not ported yet, only fused_ad=True: "
-            "ROADMAP.md queue A, item 11")
+            "fused_ad=False (the packed scan) is not ported yet, only fused_ad=True "
+            "and fused_ad='ext': ROADMAP.md queue A, item 11")
+    if fused_ad not in (True, "ext"):
+        raise ValueError(f"fused_ad must be True, False or 'ext', got {fused_ad!r}")
+    pack_plan = None
+    if fused_ad == "ext":
+        if scene is None:
+            raise ValueError("make_train_step(fused_ad='ext') needs the concrete `scene` "
+                             "(its structure makes the ext-material compaction plan)")
+        if not bounce_ad.can_fuse_ad_ext(scene):
+            raise ValueError(f"scene {scene.name!r} is not in the hybrid-ext class "
+                             "(see bounce_ad.can_fuse_ad_ext)")
+        if hybrid.ext_mat_mode(scene):
+            pack_plan = hybrid.smem_plan(scene)
     dev = resolve(device)
     n_pix = width * height
 
@@ -78,7 +96,8 @@ def make_train_step(*, width: int, height: int, max_bounces: int,
         pix = torch.arange(n_pix, dtype=torch.int32, device=dev)
         summ, nv, _rays = bounce_ad.sample_pixel_sums_fused(
             sc, pix, int(sample0) * spp_step, spp_step, width=width,
-            height=height, max_bounces=max_bounces, scan_steps=scan_steps)
+            height=height, max_bounces=max_bounces, scan_steps=scan_steps,
+            use_ext=fused_ad == "ext", pack_plan=pack_plan)
         n_valid = nv[:, None]
         mean_color = summ / torch.clamp_min(n_valid, 1.0)
         err = torch.where(n_valid > 0, mean_color - target, 0.0)

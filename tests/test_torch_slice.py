@@ -294,3 +294,35 @@ def test_train_step_on_cuda_goes_through_the_kernels():
     # the same scan through the plain versions (the same grey target)
     chip_smoke.compare_scans(mrt, bounce, bounce_ad, scene.to("cuda"), w, h, 2, 6,
                              "cornell_box 24x24")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [24, 64])
+@pytest.mark.parametrize("name", ["random_spheres", "triangles", "earth", "book2_final"])
+def test_ext_train_step_on_cuda_goes_through_the_kernels(tmp_path, monkeypatch, name, w):
+    """The hybrid-ext train step on the card: B2/B3 in the scene's ext mode
+    launch once a scan step each way, the gradients are finite, and the
+    whole scan equals its plain version in loss and gradients
+    (`chip_smoke.compare_scans(use_ext=True)`), at 24x24 and at chip_smoke's
+    phase-29 size, 64x64, 2 spp x 8 bounces."""
+    _need_cuda()
+    import chip_smoke
+    from miniraytracer_tpu_torch.ops import bounce_ad
+
+    if name == "triangles":
+        monkeypatch.setenv("MRT_ASSETS", mrt.scenes.write_stand_in_meshes(
+            str(tmp_path), bunny_subdiv=3, torus_segments=(16, 12)))
+    scene = getattr(mrt.scenes, name)(1.0)
+    bounces = 8
+    step = mrt.make_train_step(width=w, height=w, max_bounces=bounces, spp_step=2,
+                               fused_ad="ext", scene=scene)
+    fwd0, bwd0 = bounce_ad.fwd_launches, bounce_ad.bwd_launches
+    _, loss, grads = step(mrt.extract_params(scene), scene, torch.full((w * w, 3), 0.25), 0,
+                          0.0)
+    outer = bounce_ad.scan_plan(2, bounces, 0, 1)[3]
+    assert bounce_ad.fwd_launches == fwd0 + outer
+    assert bounce_ad.bwd_launches == bwd0 + outer
+    assert loss.is_cuda and torch.isfinite(loss)
+    assert all(g.is_cuda and torch.isfinite(g).all() for g in grads)
+    chip_smoke.compare_scans(mrt, bounce, bounce_ad, scene.to("cuda"), w, w, 2, bounces, name,
+                             use_ext=True)
