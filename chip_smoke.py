@@ -59,6 +59,11 @@ the ported paths on the card:
   whose loss on a held-out sample set must fall, and timed steps on
   triangles (stand-in meshes), earth and book2_final.
 
+With a copy of the parent commit's `miniraytracer_tpu_torch/csrc/` in
+`miniraytracer_tpu_torch/_build/parent_csrc/` (git-ignored), the cluster loop
+of B9-B13 is also timed against the parent's in turns (phases 13, 23, 25);
+without it that comparison is skipped.
+
 Each main path is driven with the kernels' launch counts set to 0 just before
 and read just after. Every phase raises on failure, so the exit code is
 nonzero and no result line is printed. The last three lines of standard
@@ -70,6 +75,7 @@ the plain version's time, the bound), and a JSON object naming the device.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import os
@@ -157,6 +163,93 @@ def cuda_and_host_ms(fn):
     return start.elapsed_time(end), host
 
 
+# The parent commit's design of the cluster loop of B9-B13 (flash.cu), for
+# timing the loop against it on the same card in the same run: a copy of the
+# parent's `miniraytracer_tpu_torch/csrc/` put into PARENT_CSRC, a git-ignored
+# directory, for that run only. Without it (a checkout of the repository) the
+# comparison is skipped and says so. Both libraries have the same C
+# interface, so the wrappers launch either (`launching`).
+PARENT_CSRC = os.path.join(HERE, "miniraytracer_tpu_torch", "_build", "parent_csrc")
+PARENT_KERNELS = ("flash",)
+parent_libs: dict = {}
+
+
+def build_parent(kernels, name):
+    """Build csrc/<name>.cu of PARENT_CSRC as `kernels.build` builds the
+    checkout's, and load it: the CDLL, or None without PARENT_CSRC."""
+    import ctypes
+
+    src = os.path.join(PARENT_CSRC, f"{name}.cu")
+    if not os.path.exists(src):
+        return None
+    out = os.path.join(PARENT_CSRC, f"lib{name}.so")
+    proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", out, src],
+                          capture_output=True, text=True)
+    check(proc.returncode == 0, f"the parent's {name}.cu did not build:\n{proc.stderr}")
+    with open(out + ".log", "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    lib = ctypes.CDLL(out)
+    lib.mrt_error_string.argtypes = [ctypes.c_int]
+    lib.mrt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@contextlib.contextmanager
+def launching(kernels, name, lib):
+    """While inside, the wrappers of csrc/<name>.cu launch the library `lib`
+    (another build of the same C interface)."""
+    saved = kernels.load(name)
+    kernels._loaded[name] = lib
+    try:
+        yield
+    finally:
+        kernels._loaded[name] = saved
+
+
+def against_parent(kernels, name, fn, reps, rounds=1):
+    """fn() timed with this checkout's kernels and with the parent's, in turns
+    (parent, new, new, parent; `rounds` times), `reps` calls a timing: (new ms
+    list, parent ms list) a call, or None without the parent's build."""
+    if parent_libs.get(name) is None:
+        return None
+    libs = {"parent": parent_libs[name], "new": kernels.load(name)}
+    for key in libs:  # a kernel's module loads at its first launch
+        with launching(kernels, name, libs[key]):
+            fn()
+    ms = {"new": [], "parent": []}
+    for _ in range(rounds):
+        for key in ("parent", "new", "new", "parent"):
+            with launching(kernels, name, libs[key]):
+                ms[key].append(cuda_ms(lambda: [fn() for _ in range(reps)], 1)[0] / reps)
+    return ms["new"], ms["parent"]
+
+
+def print_against_parent(what, res, card_line):
+    if res is None:
+        print(f"    {what}: the parent's design not built (no {PARENT_CSRC}): not compared")
+        return None
+    new, old = res
+    print(f"    {what}: new design {new} ms, parent's {old} ms (medians {statistics.median(new):.4f}"
+          f" / {statistics.median(old):.4f}, ratio {statistics.median(new) / statistics.median(old):.3f})"
+          f" on {card_line}")
+    return {"new_ms": statistics.median(new), "parent_ms": statistics.median(old)}
+
+
+def ptxas_lines(log, entry):
+    """ptxas's -v lines (registers, stack, spills) of each entry function of a
+    build log whose mangled name holds `entry`, with the template arguments."""
+    out, current = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            current = name if entry in name else None
+            if current:
+                out.append(f"{entry}{name[name.index(entry) + len(entry):][:24]}")
+        elif current and ("registers" in line or "stack frame" in line):
+            out.append("      " + line.strip())
+    return out
+
+
 def compare(name, kernel_out, plain_out):
     """Frames and ray counts of the kernel against the plain version."""
     (a, c, r), (a2, c2, r2) = kernel_out, plain_out
@@ -194,10 +287,14 @@ def main() -> None:
     # 2. build the kernels from the sources in this checkout
     t0 = time.perf_counter()
     names = ("bounce", "bounce_ad", "flash", "hybrid", "noise")
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(names) + len(PARENT_KERNELS)) as pool:
+        parents = [pool.submit(build_parent, kernels, n) for n in PARENT_KERNELS]
         list(pool.map(kernels.build, names))  # one nvcc each, side by side
+        parent_libs.update(zip(PARENT_KERNELS, (f.result() for f in parents)))
     print(f"phase 2: built {', '.join(f'csrc/{n}.cu' for n in names)} in "
-          f"{time.perf_counter() - t0:.2f} s")
+          f"{time.perf_counter() - t0:.2f} s; the parent's design of "
+          f"{', '.join(PARENT_KERNELS)}: "
+          f"{'built' if all(parent_libs.values()) else 'absent, not compared'}")
     for name in names:
         for line in kernels.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
@@ -641,6 +738,12 @@ def train_phases(mrt, bounce, bounce_ad, dev, card_line):
           f"device time is {busy / med:.3f} of the median step)")
     for name, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:4]:
         print(f"    {ms:8.2f} ms  {100 * ms / busy:5.1f}%  x{count:<4d} {name[:90]}")
+    from miniraytracer_tpu_torch.utils import kernels
+
+    print("  B3 (ad_step_bwd_kernel<EXT, EXT_MAT, IMAGE>, <false, false, false> the fused "
+          "class), ptxas -v:")
+    for line in ptxas_lines(kernels.build_log("bounce_ad"), "ad_step_bwd_kernel"):
+        print("   ", line)
 
     # the kernels alone over one whole scan, then one launch against plain
     meta, cfg, outer, tables, pix, sb, state, residual = launch_states(
@@ -1149,6 +1252,7 @@ def queue_phases(mrt, bounce, flash, hybrid, dev, card_line, refs, hybrid_row):
     """Phases 13 to 17: the clustered sphere sweeps, the shade step and the
     work-queue render. Returns the three kernels' rows of the result line."""
     from miniraytracer_tpu_torch.models import integrator
+    from miniraytracer_tpu_torch.utils import kernels
 
     w = h = 500
     n_pix = w * h
@@ -1206,9 +1310,12 @@ def queue_phases(mrt, bounce, flash, hybrid, dev, card_line, refs, hybrid_row):
               f"sweeps {work['clusters'] / max(n_live, 1):.2f} of {nc} clusters; kernel {k_ms} ms, "
               f"plain {p_ms} ms, the dense kernel B8 on the same rays {dense_ms:.3f} ms, bound "
               f"{b_ms:.4f} ms by {b_by}; on {card_line}")
+        vs = print_against_parent(f"{kernel.__name__} (the cluster loop)", against_parent(
+            kernels, "flash", lambda: kernel(cull, *rays, bounce.TMIN), 5), card_line)
         sweep_rows[name] = dict(ms=statistics.mean(k_ms), plain_ms=statistics.mean(p_ms),
                                 bound_ms=b_ms, bound_by=b_by, dense_ms=dense_ms,
-                                clusters_per_ray=work["clusters"] / max(n_live, 1))
+                                clusters_per_ray=work["clusters"] / max(n_live, 1),
+                                parent_design=vs)
     del timed
 
     # 14. B5 vs plain, lane by lane, in its four modes
@@ -1290,18 +1397,21 @@ def queue_phases(mrt, bounce, flash, hybrid, dev, card_line, refs, hybrid_row):
               f"ms a queue step; runs {ms}) on {card_line}")
         wall, busy, by_name = device_share(
             lambda: mrt.render(scene_d, w, h, profile_spp, max_bounces=32))
-        named = {"shade_step_kernel": 0.0, "flash_sphere_gated_kernel": 0.0,
-                 "flash_sphere_streamed_kernel": 0.0}
-        for kname, (kms, _) in by_name.items():
+        named = {"shade_step_kernel": [0.0, 0], "flash_sphere_gated_kernel": [0.0, 0],
+                 "flash_sphere_streamed_kernel": [0.0, 0]}
+        for kname, (kms, count) in by_name.items():
             for key in named:
                 if key in kname:
-                    named[key] += kms
-        rest = busy - sum(named.values())
+                    named[key][0] += kms
+                    named[key][1] += count
+        rest = busy - sum(kms for kms, _ in named.values())
         n_rest = sum(c for kname, (_, c) in by_name.items() if not any(k in kname for k in named))
+        per = lambda key: (f"{named[key][0]:.1f} ms over {named[key][1]} launches "
+                           f"({named[key][0] / max(named[key][1], 1):.4f} ms a launch)")
         print(f"  one {profile_spp}-spp frame under torch.profiler: wall {wall:.1f} ms, device busy "
               f"{busy:.1f} ms (idle share {max(0.0, 1 - busy / wall):.3f}): B5 "
-              f"{named['shade_step_kernel']:.1f} ms, B13 {named['flash_sphere_gated_kernel']:.1f} "
-              f"ms, B12 {named['flash_sphere_streamed_kernel']:.1f} ms, {n_rest} other launches "
+              f"{per('shade_step_kernel')}, B13 {per('flash_sphere_gated_kernel')}, B12 "
+              f"{per('flash_sphere_streamed_kernel')}, {n_rest} other launches "
               f"(claiming, merging, camera rays, the box sweep, candidate assembly) {rest:.1f} ms")
         for kname, (kms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]:
             print(f"    {kms:8.2f} ms  {100 * kms / busy:5.1f}%  x{count:<6d} {kname[:90]}")
@@ -1658,6 +1768,7 @@ def triangle_phases(mrt, bounce, flash, hybrid, dev, card_line, size=500, spp=64
     from miniraytracer_tpu_torch.models import integrator
     from miniraytracer_tpu_torch.ops import intersect as ix
     from miniraytracer_tpu_torch.ops.vecmath import V3
+    from miniraytracer_tpu_torch.utils import kernels
 
     scene = triangles_scene(mrt).to(dev)
     cull = flash.scene_tri_cull(scene)
@@ -1721,6 +1832,34 @@ def triangle_phases(mrt, bounce, flash, hybrid, dev, card_line, size=500, spp=64
                            bound_by=b_by, dense_b7_ms=statistics.median(dense_ms),
                            clusters_per_ray=work["clusters"] / max(n_live, 1),
                            pairs_passed=work["clusters"], rays=n, rays_alive=n_live)
+    # B10 as the main path launches it (sorted rays, the rect seed): the
+    # kernel alone, from a visiting plan made once, and the wrapper's ray sort
+    # alone; the kernel against the parent's design in turns
+    print("  the cluster loop (flash_tri_clustered_kernel, flash_sphere_*_kernel), ptxas -v:")
+    for entry in ("flash_tri_clustered_kernel", "flash_sphere_gated_kernel",
+                  "flash_sphere_streamed_kernel"):
+        for line in ptxas_lines(kernels.build_log("flash"), entry):
+            print("    new design", line)
+        if parent_libs.get("flash") is not None:
+            with open(os.path.join(PARENT_CSRC, "libflash.so.log")) as f:
+                for line in ptxas_lines(f.read(), entry):
+                    print("    parent's  ", line)
+    plan = flash._visit_plan(ro, rd, cull[1], True)
+    b10_alone = lambda: flash.launch_tri_planned(10, cull, ro, rd, inside, bounce.TMIN, seed, *plan)
+    check(all(torch.equal(a, b) for a, b in zip(
+        b10_alone(), flash.flash_tri_hit_resident(cull, ro, rd, inside, bounce.TMIN, seed))),
+        "B10 from a plan differs from B10")
+    alone_ms = cuda_ms(lambda: [b10_alone() for _ in range(10)], 3)
+    sort_ms = cuda_ms(lambda: [flash._visit_plan(ro, rd, cull[1], True) for _ in range(10)], 3)
+    print(f"  B10 on those rays from the rect seed: the kernel alone "
+          f"{[m / 10 for m in alone_ms]} ms, the wrapper's ray sort (_visit_plan) alone "
+          f"{[m / 10 for m in sort_ms]} ms a launch (10 launches a timing) on {card_line}")
+    rows["flash_tri_hit_resident"].update(
+        kernel_alone_ms=statistics.median(alone_ms) / 10,
+        ray_sort_ms=statistics.median(sort_ms) / 10,
+        parent_design=print_against_parent(
+            "B10, the kernel alone", against_parent(kernels, "flash", b10_alone, 10, rounds=2),
+            card_line))
     del timed, args, ro, rd, inside, alive, seed
     torch.cuda.empty_cache()
 
@@ -1760,6 +1899,8 @@ def triangle_phases(mrt, bounce, flash, hybrid, dev, card_line, size=500, spp=64
     print(f"  forward {stats['rays'] / (med / 1e3) / 1e6:.2f} Mrays/s (median of 2 warm renders, "
           f"{med:.1f} ms each, {med / stats['steps']:.3f} ms a queue step; runs {ms}) on "
           f"{card_line}")
+    frame_vs = print_against_parent("the triangles frame", against_parent(kernels, "flash", one, 1),
+                                    card_line)
     wall, busy, by_name = device_share(
         lambda: mrt.render(scene, size, size, profile_spp, max_bounces=bounces))
     named = {"flash_tri_clustered_kernel": [0.0, 0], "shade_step_kernel": [0.0, 0]}
@@ -1830,6 +1971,7 @@ def triangle_phases(mrt, bounce, flash, hybrid, dev, card_line, size=500, spp=64
     return [
         {"name": "flash_tri_hit_resident", "replaces": "miniraytracer_tpu/ops/flash.py:701",
          "launches": counts["b10"], **rows["flash_tri_hit_resident"], "frame_ms": med,
+         "frame_parent_design": frame_vs,
          "frame_steps": stats["steps"], "frame_rays": stats["rays"],
          "profile_spp": profile_spp, "profile_device_busy_ms": busy,
          "profile_b10_device_ms": sweep_ms, "profile_wall_ms": wall, **common},

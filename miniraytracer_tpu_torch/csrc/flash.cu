@@ -266,28 +266,41 @@ flash_sphere_kernel(const float* __restrict__ cb, const float* __restrict__ cc,
 // `flash_tri_hit_streamed_plain`.
 //
 // Design: ONE cluster loop (`clustered_sweep`), generic over the primitive
-// (`SpherePrim`, `TriPrim`: features, tables, the pair test). The gate is per
-// RAY and the work follows it. A thread owns a ray: it tests the ray against
-// each cluster's box. A block of 128 rays votes (`__syncthreads_or`); a
-// cluster that any of them wants is staged in shared memory, 128 rows at a
-// time, column-major so that the lanes of a warp read neighbouring words.
-// Then each warp takes the rays of its own that want the cluster, one after
-// the other (`__ballot_sync`): for one such ray the 32 lanes split the
-// cluster's rows between them, each runs the pair test on its rows with the
-// ray's features (kept in shared memory a warp, read as a broadcast), and a
-// shuffle reduction gives the (nearest t, first row with it), which the ray's
-// own lane takes if strictly nearer than its best. So a warp spends time on
-// (ray, cluster) pairs that passed the gate and on nothing else. The pairs are
-// computed as the dense sweeps compute them (`sphere_root`, `tri_root`, the
-// sums in column order), so every sweep of a primitive agrees to the bit
-// wherever it tests the same pair; a strict `<` keeps the first winner in
-// visiting order; a miss reports index 0.
+// (`SpherePrim`, `TriPrim`: features, tables, the pair test). RAY_LANES = 4
+// lanes work for one ray, 8 rays a warp, and each WARP walks its visiting
+// order on its own, with no barrier of the block. The lanes of a ray test the
+// next four clusters of the order against the ray, one each (the slab test);
+// when no ray of the warp enters any of the four before its best (a vote), the
+// four are skipped at the cost of one slab test a lane. Else they are taken
+// one after the other, each ray holding the k-th test (from its k-th lane)
+// against its best so far, as the visiting order requires. The c rays that
+// want a cluster share the warp's 32 lanes out in teams of 32 / 2^ceil(log2 c)
+// lanes: a team takes its ray's features from the ray's first lane
+// (shuffles), its lanes split the cluster's rows (member m takes rows m,
+// m + team, ...), and a butterfly over the team gives the (nearest t, lowest
+// row with it), which the ray's lanes take if strictly nearer than its best.
+// The rows are read from the tables in device memory, 16 bytes a load through
+// the read-only cache (the triangles scene's four tables are 2.9 MB, a
+// cluster 16 KB, far inside the 50 MB L2); nothing is staged in shared
+// memory. The pairs are computed as the dense sweeps compute them
+// (`sphere_root`, `tri_root`, the sums in column order), so every sweep of a
+// primitive agrees to the bit wherever it tests the same pair; a strict `<`
+// keeps the first winner in visiting order; a miss reports index 0.
+//
+// Why four lanes a ray: the work is uneven. Of the rays of a queue step most
+// want no cluster at all, and the warps whose rays hit a mesh sweep hundreds
+// of (ray, cluster) pairs, so a launch lasts as long as its heaviest warps.
+// More lanes a ray spread that work over more warps, and splitting the slab
+// tests between a ray's lanes keeps their count at one a (ray, cluster).
+// `time_designs.py` times the loop at one to eight lanes a ray against a
+// block-wide loop that staged each wanted cluster in shared memory for all
+// 128 rays of a block (one block barrier a cluster).
 //
 // Visiting order. Spheres: table (Morton) order. Triangles, as the TPU's
 // `_culled_kernel`: the wrapper sorts the rays by direction octant and origin
 // cell (`ray_of` lists the rays in that order, `grp_oct` holds the octant of
-// the first ray of each VISIT_GROUP of them), and a block visits the clusters
-// front to back for its group's octant (`cl_ord`, (8, NC), the reference
+// the first ray of each VISIT_GROUP of them), and the warps of a group visit
+// the clusters front to back for its octant (`cl_ord`, (8, NC), the reference
 // BVH's ordered traversal), so that `tnear < best_t` prunes the far clusters
 // once a near hit is found, and the rays of a warp want the same clusters.
 //
@@ -309,64 +322,71 @@ flash_sphere_kernel(const float* __restrict__ cb, const float* __restrict__ cc,
 // What bounds them: fp32 instructions of the pairs actually tested, plus
 // 3 x 9 + 4 a (ray, cluster) slab test; bytes are negligible.
 
-// lanes that share a ray's cluster; a host emulation runs warps of one lane
+// lanes of a warp; a host emulation runs warps of one lane
 #ifndef MRT_WARP
 #define MRT_WARP 32
 #endif
 static_assert(MRT_FLASH_THREADS % MRT_WARP == 0, "whole warps a block");
 
-constexpr int CL_ROWS = 128;  // cluster rows staged at a time
-// words between two columns of the staged tile: one more than the rows, so
-// that the staging stores (column fastest) spread over the banks as the
-// sweep's loads (row fastest) do
-constexpr int CL_STRIDE = CL_ROWS + 1;
 constexpr unsigned FULL_WARP = 0xffffffffu;
-// rays that share one visiting order: a block on the card; the wrapper's
-// `grp_oct` has one entry for each VISIT_GROUP rays
+// lanes that work for one ray (a host emulation's warp of one lane: one)
+constexpr int RAY_LANES = MRT_WARP >= 4 ? 4 : 1;
+constexpr int WARP_RAYS = MRT_WARP / RAY_LANES;
+// rays that share one visiting order; the wrapper's `grp_oct` has one entry
+// for each VISIT_GROUP rays
 constexpr int VISIT_GROUP = 128;
-static_assert(VISIT_GROUP % MRT_FLASH_THREADS == 0, "a block within one visiting group");
+static_assert(VISIT_GROUP % WARP_RAYS == 0, "a warp within one visiting group");
 
-// sum_k tile[k * CL_STRIDE + row] * f[k], in column order, from a staged table
+// sum_k row[k] * f[k], in column order, from a row of a table in device
+// memory (16-byte aligned: the wrapper checks the tables)
 template <int F>
-__device__ __forceinline__ float dot_staged(const float* __restrict__ tile, int row,
-                                            const float (&f)[F]) {
-  float acc = tile[row] * f[0];
+__device__ __forceinline__ float dot_table(const float* __restrict__ row, const float (&f)[F]) {
+  const float4* const r4 = reinterpret_cast<const float4*>(row);
+  float4 q = __ldg(r4);
+  float acc = q.x * f[0];
+  acc = acc + q.y * f[1];
+  acc = acc + q.z * f[2];
+  acc = acc + q.w * f[3];
 #pragma unroll
-  for (int k = 1; k < F; ++k) acc = acc + tile[k * CL_STRIDE + row] * f[k];
+  for (int k = 4; k + 3 < F; k += 4) {
+    q = __ldg(r4 + k / 4);
+    acc = acc + q.x * f[k];
+    acc = acc + q.y * f[k + 1];
+    acc = acc + q.z * f[k + 2];
+    acc = acc + q.w * f[k + 3];
+  }
+#pragma unroll
+  for (int k = F - F % 4; k < F; ++k) acc = acc + __ldg(row + k) * f[k];
   return acc;
 }
 
 // a sphere set: tables (b, c) of SPH_W words a row, SPH_F of them used
 struct SpherePrim {
   static constexpr int F = SPH_F;
-  static constexpr int TABLES = 2;
-  static constexpr int W = SPH_W;
   __device__ static void features(const float (&ro)[3], const float (&rd)[3], float time,
                                   float (&f)[F]) {
     sphere_features(ro, rd, time, f);
   }
-  __device__ static bool pair(const float* __restrict__ tile, int row, const float (&f)[F],
+  __device__ static bool pair(const float* const (&tab)[4], int row, const float (&f)[F],
                               bool inside, float tmin, float& t) {
-    return sphere_root(dot_staged<F>(tile, row, f), dot_staged<F>(tile + F * CL_STRIDE, row, f),
-                       inside, tmin, t);
+    const size_t o = (size_t)row * SPH_W;
+    return sphere_root(dot_table<F>(tab[0] + o, f), dot_table<F>(tab[1] + o, f), inside, tmin,
+                       t);
   }
 };
 
 // a triangle set: tables (det, uu, vv, tn) of TRI_F words a row
 struct TriPrim {
   static constexpr int F = TRI_F;
-  static constexpr int TABLES = 4;
-  static constexpr int W = TRI_F;
   __device__ static void features(const float (&ro)[3], const float (&rd)[3], float,
                                   float (&f)[F]) {
     tri_features(ro, rd, f);
   }
-  __device__ static bool pair(const float* __restrict__ tile, int row, const float (&f)[F],
+  __device__ static bool pair(const float* const (&tab)[4], int row, const float (&f)[F],
                               bool inside, float tmin, float& t) {
-    constexpr int TS = F * CL_STRIDE;
-    return tri_root(dot_staged<F>(tile, row, f), dot_staged<F>(tile + TS, row, f),
-                    dot_staged<F>(tile + 2 * TS, row, f), dot_staged<F>(tile + 3 * TS, row, f),
-                    inside, tmin, t);
+    const size_t o = (size_t)row * TRI_F;
+    return tri_root(dot_table<F>(tab[0] + o, f), dot_table<F>(tab[1] + o, f),
+                    dot_table<F>(tab[2] + o, f), dot_table<F>(tab[3] + o, f), inside, tmin, t);
   }
 };
 
@@ -375,12 +395,13 @@ struct Tables {
   const float* t[4];
 };
 
-// does the ray want cluster j: it crosses the box beyond tmin, and enters it
-// before its current best
-__device__ __forceinline__ bool slab_gate(const float* __restrict__ bounds, int nc, int j,
-                                          const float (&ro)[3], const float (&ird)[3],
-                                          float tmin, float best_t) {
-  float tnear = 0.0f, tfar = 0.0f;
+// does the ray cross cluster j's box beyond tmin; `tnear` gets where it
+// enters the box (the ray wants the cluster when that is before its best)
+__device__ __forceinline__ bool slab_cross(const float* __restrict__ bounds, int nc, int j,
+                                           const float (&ro)[3], const float (&ird)[3],
+                                           float tmin, float& tnear) {
+  float tfar = 0.0f;
+  tnear = 0.0f;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     const float t0 = (bounds[a * nc + j] - ro[a]) * ird[a];
@@ -391,13 +412,40 @@ __device__ __forceinline__ bool slab_gate(const float* __restrict__ bounds, int 
     tfar = (a == 0 || hi < tfar) ? hi : tfar;
   }
   const float from = tnear > tmin ? tnear : tmin;
-  return tfar > from && tnear < best_t;
+  return tfar > from;
+}
+
+// the lane of the k-th (from 0) set bit of a non-empty `mask` with more than k
+// bits: the largest p with fewer than k + 1 set bits below it
+__device__ __forceinline__ int nth_lane(unsigned mask, int k) {
+  int p = 0;
+#pragma unroll
+  for (int w = MRT_WARP / 2; w > 0; w /= 2)
+    if (__popc(mask & ((1u << (p + w)) - 1u)) <= k) p += w;
+  return p;
+}
+
+// One team's sweep of the rows of a cluster for one ray: member m of `team`
+// lanes tests rows m, m + team, ... in order; (t_min, row_min) is its nearest
+// and the first row with it, (INF, rows) for none.
+template <class P>
+__device__ __forceinline__ void sweep_rows(const float* const (&tab)[4], int first, int rows,
+                                           int member, int team, const float (&f)[P::F],
+                                           bool inside, float tmin, float& t_min, int& row_min) {
+  for (int row = member; row < rows; row += team) {
+    float t;
+    if (P::pair(tab, first + row, f, inside, tmin, t) && t < t_min) {
+      t_min = t;
+      row_min = row;
+    }
+  }
 }
 
 // The cluster loop of every clustered entry point. `time_in` is null for a
 // primitive without motion, `seed_in` null for "from INF"; `ray_of` null means
 // the rays in their own order and `cl_ord` null the clusters in table order
-// (then `grp_oct` is not read).
+// (then `grp_oct` is not read). RAY_LANES lanes a ray: launch n * RAY_LANES
+// threads.
 template <class P>
 __device__ __forceinline__ void clustered_sweep(
     const Tables tab, const float* __restrict__ bounds, const int* __restrict__ orig_of,
@@ -408,79 +456,78 @@ __device__ __forceinline__ void clustered_sweep(
     const float* __restrict__ time_in, const float* __restrict__ seed_in,
     const int* __restrict__ inside_in, float* __restrict__ t_out, int* __restrict__ i_out, int n,
     int nc, int block, float tmin) {
-  __shared__ float tile[P::TABLES * P::F * CL_STRIDE];
-  __shared__ float feat[MRT_FLASH_THREADS / MRT_WARP][P::F * MRT_WARP];
   const int lane_id = threadIdx.x % MRT_WARP;
-  float* const my_feat = feat[threadIdx.x / MRT_WARP];
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = lane < n;
-  const int pos = live ? lane : n - 1;  // a thread past the end still helps its block
+  const int sub = lane_id % RAY_LANES;       // this lane's share of its ray's work
+  const int first_lane = lane_id - sub;      // the ray's first lane
+  const unsigned before = (1u << first_lane) - 1u;  // the lanes of the rays before it
+  const int thread = blockIdx.x * blockDim.x + threadIdx.x;
+  const int ray = thread / RAY_LANES;        // its position in the visiting order
+  const bool live = ray < n;
+  if (__ballot_sync(FULL_WARP, live) == 0) return;  // a warp wholly past the end
+  const int pos = live ? ray : n - 1;  // a lane past the end still takes part in its warp's votes
   const int src = ray_of ? ray_of[pos] : pos;
   const float ro[3] = {rox[src], roy[src], roz[src]};
   const float rd[3] = {rdx[src], rdy[src], rdz[src]};
   const float ird[3] = {1.0f / rd[0], 1.0f / rd[1], 1.0f / rd[2]};
   const bool inside = inside_in[src] > 0;
-  {
-    float f[P::F];
-    P::features(ro, rd, time_in ? time_in[src] : 0.0f, f);
-#pragma unroll
-    for (int k = 0; k < P::F; ++k) my_feat[k * MRT_WARP + lane_id] = f[k];
-  }
-  __syncwarp();
-  // the block's visiting order: that of the group of its first ray
+  float f[P::F];
+  P::features(ro, rd, time_in ? time_in[src] : 0.0f, f);
+  const float* const tabs[4] = {tab.t[0], tab.t[1], tab.t[2], tab.t[3]};
+  // the warp's visiting order: that of the group of its first ray
   const int* const order =
-      cl_ord ? cl_ord + grp_oct[(blockIdx.x * blockDim.x) / VISIT_GROUP] * nc : nullptr;
+      cl_ord ? cl_ord + grp_oct[((thread - lane_id) / RAY_LANES) / VISIT_GROUP] * nc : nullptr;
   float best_t = seed_in ? seed_in[src] : INF;
   int best_i = -1;
-  for (int s = 0; s < nc; ++s) {
-    const int j = order ? order[s] : s;
-    const bool want = live && slab_gate(bounds, nc, j, ro, ird, tmin, best_t);
-    if (!__syncthreads_or(want)) continue;  // also: the previous tile is no longer read
-    const unsigned wanting = __ballot_sync(FULL_WARP, want);
-    for (int sub = 0; sub < block; sub += CL_ROWS) {
-      const int base = j * block + sub;
-      const int rows = min(CL_ROWS, block - sub);
-      if (sub > 0) __syncthreads();
-      for (int k = threadIdx.x; k < rows * P::F; k += blockDim.x) {
-        const int row = k / P::F, col = k - row * P::F;
+  for (int s0 = 0; s0 < nc; s0 += RAY_LANES) {
+    // the lanes of a ray test the next RAY_LANES clusters of its order, one each
+    float tnear = 0.0f;
+    const bool crossed = live && s0 + sub < nc &&
+                         slab_cross(bounds, nc, order ? order[s0 + sub] : s0 + sub, ro, ird,
+                                    tmin, tnear);
+    // none of them entered before a ray's best: none is wanted, also later
+    if (__ballot_sync(FULL_WARP, crossed && tnear < best_t) == 0) continue;
+    // else one after the other in visiting order, each against the best so far
+    for (int k = 0; k < RAY_LANES && s0 + k < nc; ++k) {
+      const bool cr = __shfl_sync(FULL_WARP, (int)crossed, first_lane + k) != 0;
+      const float tn = __shfl_sync(FULL_WARP, tnear, first_lane + k);
+      const bool want = cr && tn < best_t;
+      const unsigned wanting = __ballot_sync(FULL_WARP, want);  // RAY_LANES bits a ray
+      if (wanting == 0) continue;
+      const int j = order ? order[s0 + k] : s0 + k;
+      const int first = j * block;
+      // teams of `team` lanes, the q-th team for the q-th wanting ray
+      const int c = __popc(wanting) / RAY_LANES;
+      int team = MRT_WARP;
+      while (team * c > MRT_WARP) team /= 2;
+      const int q = lane_id / team, member = lane_id % team;
+      const int owner = q < c ? nth_lane(wanting, q * RAY_LANES) : lane_id;
+      float g[P::F];
 #pragma unroll
-        for (int q = 0; q < P::TABLES; ++q)
-          tile[(q * P::F + col) * CL_STRIDE + row] = tab.t[q][(size_t)(base + row) * P::W + col];
+      for (int w = 0; w < P::F; ++w) g[w] = __shfl_sync(FULL_WARP, f[w], owner);
+      const bool g_inside = __shfl_sync(FULL_WARP, (int)inside, owner) != 0;
+      float t_min = INF;
+      int row_min = block;
+      if (q < c) sweep_rows<P>(tabs, first, block, member, team, g, g_inside, tmin, t_min, row_min);
+      // the nearest over the team, the lowest row among equals
+      for (int off = team / 2; off > 0; off /= 2) {
+        const float t_o = __shfl_xor_sync(FULL_WARP, t_min, off);
+        const int row_o = __shfl_xor_sync(FULL_WARP, row_min, off);
+        if (t_o < t_min || (t_o == t_min && row_o < row_min)) {
+          t_min = t_o;
+          row_min = row_o;
+        }
       }
-      __syncthreads();
-      // the rays of this warp that want the cluster, one after the other
-      for (unsigned todo = wanting; todo != 0; todo &= todo - 1) {
-        const int owner = __ffs((int)todo) - 1;
-        const bool ray_inside = __shfl_sync(FULL_WARP, (int)inside, owner) != 0;
-        float f[P::F];
-#pragma unroll
-        for (int k = 0; k < P::F; ++k) f[k] = my_feat[k * MRT_WARP + owner];
-        float t_min = INF;
-        int row_min = CL_ROWS;
-        for (int row = lane_id; row < rows; row += MRT_WARP) {
-          float t;
-          if (P::pair(tile, row, f, ray_inside, tmin, t) && t < t_min) {
-            t_min = t;
-            row_min = row;
-          }
-        }
-        // the nearest over the lanes, the lowest row among equals
-        for (int off = MRT_WARP / 2; off > 0; off /= 2) {
-          const float t_o = __shfl_xor_sync(FULL_WARP, t_min, off);
-          const int row_o = __shfl_xor_sync(FULL_WARP, row_min, off);
-          if (t_o < t_min || (t_o == t_min && row_o < row_min)) {
-            t_min = t_o;
-            row_min = row_o;
-          }
-        }
-        if (lane_id == owner && t_min < best_t) {
-          best_t = t_min;
-          best_i = base + row_min;
-        }
+      // the lanes of each wanting ray take its team's result from the team's first lane
+      const int from = (__popc(wanting & before) / RAY_LANES) * team;
+      t_min = __shfl_sync(FULL_WARP, t_min, from % MRT_WARP);
+      row_min = __shfl_sync(FULL_WARP, row_min, from % MRT_WARP);
+      if (want && t_min < best_t) {
+        best_t = t_min;
+        best_i = first + row_min;
       }
     }
   }
-  if (live) {
+  if (live && sub == 0) {
     t_out[src] = best_t;
     i_out[src] = best_i >= 0 ? orig_of[best_i] : 0;
   }
@@ -535,6 +582,13 @@ flash_tri_clustered_kernel(const float* __restrict__ c_det, const float* __restr
                            t_out, i_out, n, nc, block, tmin);
 }
 
+// blocks of a clustered launch, RAY_LANES threads a ray; 0 when the thread
+// index would not fit an int
+int clustered_blocks(int n, int threads) {
+  const long long lanes = (long long)n * RAY_LANES;
+  return lanes > 0x7fffffffLL - threads ? 0 : (int)((lanes + threads - 1) / threads);
+}
+
 }  // namespace
 
 extern "C" {
@@ -577,7 +631,8 @@ int mrt_flash_sphere_gated(const float* cb, const float* cc, const float* bounds
                            int* i_out, int n, int nc, int block, float tmin, void* stream) {
   if (n <= 0) return 0;
   const int threads = MRT_FLASH_THREADS;
-  const int blocks = (n + threads - 1) / threads;
+  const int blocks = clustered_blocks(n, threads);
+  if (blocks == 0) return (int)cudaErrorInvalidValue;
   MRT_LAUNCH(flash_sphere_gated_kernel, blocks, threads, 0, stream, cb, cc, bounds, orig_of, rox,
              roy, roz, rdx, rdy, rdz, time, inside, t_out, i_out, n, nc, block, tmin);
   return (int)cudaGetLastError();
@@ -591,7 +646,8 @@ int mrt_flash_sphere_streamed(const float* cb, const float* cc, const float* bou
                               int block, float tmin, void* stream) {
   if (n <= 0) return 0;
   const int threads = MRT_FLASH_THREADS;
-  const int blocks = (n + threads - 1) / threads;
+  const int blocks = clustered_blocks(n, threads);
+  if (blocks == 0) return (int)cudaErrorInvalidValue;
   MRT_LAUNCH(flash_sphere_streamed_kernel, blocks, threads, 0, stream, cb, cc, bounds, orig_of,
              rox, roy, roz, rdx, rdy, rdz, time, seed, inside, t_out, i_out, n, nc, block, tmin);
   return (int)cudaGetLastError();
@@ -613,7 +669,8 @@ int mrt_flash_tri_clustered(int route, const float* c_det, const float* c_uu,
                             void* stream) {
   if (n <= 0) return 0;
   const int threads = MRT_FLASH_THREADS;
-  const int blocks = (n + threads - 1) / threads;
+  const int blocks = clustered_blocks(n, threads);
+  if (blocks == 0) return (int)cudaErrorInvalidValue;
 #define MRT_TRI_CLUSTERED(R)                                                                     \
   MRT_LAUNCH(flash_tri_clustered_kernel<R>, blocks, threads, 0, stream, c_det, c_uu, c_vv, c_tn, \
              bounds, orig_of, cl_ord, ray_of, grp_oct, rox, roy, roz, rdx, rdy, rdz, seed,       \

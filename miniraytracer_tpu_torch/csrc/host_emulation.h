@@ -43,14 +43,19 @@ static inline void __syncthreads() {}
 // blocks of one thread and warps of one lane (MRT_WARP 1): a vote is the
 // thread's own, a shuffle gives back what it was given
 #define MRT_WARP 1
-static inline int __syncthreads_or(int predicate) { return predicate; }
-static inline void __syncwarp() {}
 static inline unsigned __ballot_sync(unsigned, int predicate) { return predicate ? 1u : 0u; }
 template <typename T>
 static inline T __shfl_sync(unsigned, T v, int) { return v; }
 template <typename T>
 static inline T __shfl_xor_sync(unsigned, T v, int) { return v; }
-static inline int __ffs(int x) { return __builtin_ffs(x); }
+static inline int __popc(unsigned x) { return __builtin_popcount(x); }
+
+// the read-only data cache path is a plain load here
+struct float4 {
+  float x, y, z, w;
+};
+template <typename T>
+static inline T __ldg(const T* p) { return *p; }
 
 static inline float __uint_as_float(uint32_t u) {
   float f;

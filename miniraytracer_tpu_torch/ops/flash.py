@@ -531,6 +531,9 @@ def _check_cull(cull, dev):
                      or orig_of.shape != (rows,) or not orig_of.is_contiguous()):
         raise ValueError(f"orig_of must be a contiguous int32 ({rows},) tensor on "
                          f"{dev}, a whole number of rows a cluster")
+    if any(t.data_ptr() % 16 for t in tables):
+        raise ValueError("the cluster tables must start on a 16-byte boundary: the "
+                         "kernel reads their rows 16 bytes at a time")
     return nc, rows // nc
 
 
@@ -815,8 +818,16 @@ def flash_tri_hit_streamed_plain(cull, ro: V3, rd: V3, inside, tmin, t_seed=None
 
 
 def _launch_tri_clustered(route, cull, ro: V3, rd: V3, inside, tmin, t_seed, sort_rays):
-    """Check the arguments and launch the cluster loop for `route` (9, 10 or
-    11) on the current stream: (t, idx)."""
+    """Check the arguments, sort the rays (`_visit_plan`) and launch the
+    cluster loop for `route` (9, 10 or 11) on the current stream: (t, idx)."""
+    return launch_tri_planned(route, cull, ro, rd, inside, tmin, t_seed,
+                              *_visit_plan(ro, rd, cull[1], sort_rays))
+
+
+def launch_tri_planned(route, cull, ro: V3, rd: V3, inside, tmin, t_seed, ray_of, grp_oct):
+    """The cluster loop's launch alone, from a visiting plan of `_visit_plan`
+    (so that the kernel can be timed apart from its wrapper's ray sort):
+    (t, idx). Counts no launch; the entry points below do."""
     from miniraytracer_tpu_torch.utils import kernels
 
     cds, bounds, orig_of, cl_ord = cull[:4]
@@ -827,7 +838,8 @@ def _launch_tri_clustered(route, cull, ro: V3, rd: V3, inside, tmin, t_seed, sor
         raise ValueError(f"cl_ord must be a contiguous int32 (8, {nc}) tensor on {dev}")
     seed = torch.full_like(ro.x, INF) if t_seed is None else t_seed
     _check_kernel_args(dev, n, NUM_FEATURES, cds, [*ro, *rd, seed], inside)
-    ray_of, grp_oct = _visit_plan(ro, rd, bounds, sort_rays)
+    if ray_of.shape != (n,) or grp_oct.shape != (-(-n // VISIT_GROUP),):
+        raise ValueError("the visiting plan does not fit the rays")
     t_out = torch.empty((n,), dtype=torch.float32, device=dev)
     i_out = torch.empty((n,), dtype=torch.int32, device=dev)
     lib = kernels.load("flash")

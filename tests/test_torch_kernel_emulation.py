@@ -11,6 +11,14 @@ g++ is given `-ffp-contract=off`, as nvcc is given `--fmad=false`: the
 kernels then take the discrete decisions the plain version takes, and floats
 differ only where libm's sin, cos, log and exp round differently from
 PyTorch's (about 1e-7 of the state's scale).
+
+Blocks run one thread here and warps one lane (`MRT_WARP 1`): a vote is the
+lane's own, a shuffle returns what it was given. So the cluster loop of
+`flash.cu` runs here with one lane a ray (four on the card) and teams of one
+lane; its warp-level logic (the four lanes' slab tests, the teams that share a
+cluster's rows out, their reduction) has `chip_smoke.py` (phases 13 and 23:
+every ray of real queue steps against the plain versions) as its only check
+at 32 lanes.
 """
 
 import contextlib
@@ -127,6 +135,59 @@ def test_emulated_ad_step_kernels_match_plain(emulated, name):
         f, i, k = fp, ip, kp
     assert touched > 0
     assert tad.fwd_launches == fwd0 + outer and tad.bwd_launches == bwd0 + outer
+    assert float(f[tad.A_NV].sum()) == w * h * spp
+
+
+@pytest.mark.parametrize("name,k_sub", [
+    ("cornell_box", 1), ("cornell_box", 4), ("cornell_box", 8), ("synthetic", 1),
+    ("synthetic", 4), ("synthetic", 8), ("perlin_spheres", 8), ("random_spheres", 1),
+    ("earth", 1)])
+def test_emulated_ad_step_bwd_at_sub_steps(emulated, name, k_sub):
+    """B3 replays a launch's sub-steps and keeps each one's entry state and
+    bounce record for its adjoint (`k_sub` of them a lane): at 1, 4 (the
+    train step's) and 8 (the most) sub-steps a launch in the fused class, and
+    at the one sub-step of the ext modes (ext-material: random_spheres; image:
+    earth), launch by launch over a scan from the plain scan's states: every
+    entry of `d_f` (and `d_ext`) within 2e-3*|plain| + 2e-4 of its lane's
+    largest, `d_tab` within 1e-4 of its largest entry, for a seeded
+    cotangent."""
+    scene = _scene(name)
+    w = h = 8
+    spp, bounces = 2, 6
+    ext_mode = name in ("random_spheres", "earth")
+    if ext_mode:
+        plan = thybrid.smem_plan(scene) if thybrid.ext_mat_mode(scene) else None
+        meta, tables = thybrid.pack_scene_hybrid(scene, plan)
+        cand = tad.ExtCandidate(scene)
+        images = scene.images if meta["image"] else None
+    else:
+        meta, tables = tbounce.pack_scene(scene)
+    _, claim, k, outer = tad.scan_plan(spp, bounces, spp * (bounces + 1) + 2, k_sub)
+    assert k == k_sub
+    cfg = tad.StepConfig(w, h, 8, bounces, spp, claim, k)
+    pix = torch.arange(w * h, dtype=torch.int32)
+    sb = torch.zeros_like(pix)
+    f, i, kk = tad.initial_state(scene, pix, sb, spp, width=w, height=h, sq_off=8)
+    rs = np.random.default_rng(k_sub)
+    bwd0, touched = tad.bwd_launches, 0
+    for t in range(outer):
+        args = (meta, cfg, tables, t)
+        xa = (cand.rows(f, i), images) if ext_mode else ()
+        cot = torch.as_tensor(rs.normal(size=(tad.NF, w * h)).astype(np.float32))
+        res = f[tad.RES_LO:tad.RES_HI].contiguous()
+        out_p = tad.ad_step_bwd_plain(*args, res, i, kk, pix, sb, cot, *xa)
+        out_k = tad.ad_step_bwd(*args, res, i, kk, pix, sb, cot, None, *xa)
+        (dp, tp), (dk, tk) = out_p[:2], out_k[:2]
+        if ext_mode:
+            dp, dk = torch.cat([dp, out_p[2]]), torch.cat([dk, out_k[2]])
+        top = dp.abs().amax(0)
+        assert ((dk - dp).abs() <= 2e-3 * dp.abs() + 2e-4 * top).all(), t
+        if tp.numel():
+            assert float((tk - tp).abs().max()) <= 1e-4 * float(tp.abs().max()) + 1e-30, t
+            touched += int((tp != 0).sum())
+        f, i, kk = tad.ad_step_fwd_plain(*args, f, i, kk, pix, sb, *xa)
+    assert tad.bwd_launches == bwd0 + outer
+    assert touched > 0 or name == "random_spheres"
     assert float(f[tad.A_NV].sum()) == w * h * spp
 
 
@@ -597,3 +658,71 @@ def test_emulated_clustered_tri_kernels_match_plain(emulated, name, route):
     assert torch.equal(tk2, tp2) and torch.equal(ik2, ip2)
     on_it = ip == orig_of[first]
     assert on_it.any() and (ik2[on_it] == orig_of[first]).all()
+
+
+def _shared_edge_case():
+    """Two planar meshes on one tilted plane (y = x), the second offset by
+    half a cell along it: each a 16 x 16 grid of quads with integer (or
+    half-integer) vertices, two triangles a quad, 1024 in 16 clusters of 64
+    whose boxes overlap. Rays with dyadic origins and directions go down the
+    boxes' diagonal (x and y falling) to points of the plane: every inner
+    product is exact, so the triangles of both meshes under a point give the
+    same t to the bit, often from two clusters that the ray enters before the
+    hit. Returns (cull, coeffs, rays, triangles)."""
+    rs = np.random.default_rng(5)
+    k = np.arange(17, dtype=np.float32)
+    gx, gz = np.meshgrid(k, k, indexing="ij")
+    ms, us, vs = [], [], []
+    for off in (0.0, 0.5):
+        p = np.stack([gx + off, gx + off, gz + off], -1)
+        a, b, c, d = p[:-1, :-1], p[1:, :-1], p[1:, 1:], p[:-1, 1:]
+        ms.append(np.concatenate([a, a]).reshape(-1, 3))
+        us.append(np.concatenate([b - a, c - a]).reshape(-1, 3))
+        vs.append(np.concatenate([c - a, d - a]).reshape(-1, 3))
+    v3 = lambda x: V3(*(torch.as_tensor(np.ascontiguousarray(x[:, q])) for q in range(3)))
+    m, u, v = (v3(np.concatenate(x)) for x in (ms, us, vs))
+    act = torch.ones(1024, dtype=torch.bool)
+    coeffs = tflash.tri_coefficients(m, u, v, act)
+    cull = tflash.tri_cull_build(m, u, v, act, coeffs)
+    n = 700
+    gi = rs.integers(2, 63, (n, 2)).astype(np.float32) / 4
+    target = np.stack([gi[:, 0], gi[:, 0], gi[:, 1]], 1)
+    rd = np.stack([rs.integers(-2, 3, n) / 16 - 1.0, rs.integers(-2, 3, n) / 16 - 0.5,
+                   rs.integers(-4, 5, n) / 8], 1).astype(np.float32)
+    ro = (target - 4.0 * rd).astype(np.float32)
+    inside = torch.as_tensor((rs.random(n) < 0.3).astype(np.int32))
+    return cull, coeffs, (v3(ro), v3(rd), inside, tbounce.TMIN), 1024
+
+
+@pytest.mark.parametrize("route", ["culled", "resident", "streamed"])
+def test_emulated_cluster_loop_ties_across_clusters(emulated, route):
+    """The cluster loop where two triangles of DIFFERENT clusters give a ray
+    the same t and the ray enters both clusters' boxes before that t
+    (`_shared_edge_case`): the first cluster visited keeps the hit (a strict
+    `<` in visiting order), as the plain version has it: t and index EQUAL to
+    plain on every ray, t equal to the dense sweep's; such rays do occur
+    here, and on many rays the visiting order picks another of the tied
+    triangles than the dense sweep's lowest index."""
+    cull, coeffs, rays, n_tri = _shared_edge_case()
+    kernel = getattr(tflash, f"flash_tri_hit_{route}")
+    plain = getattr(tflash, f"flash_tri_hit_{route}_plain")
+    tk, ik = kernel(cull, *rays)
+    tp, ip = plain(cull, *rays)
+    assert torch.equal(tk, tp) and torch.equal(ik, ip)
+    td, idd = tflash.flash_tri_hit_plain(coeffs, *rays)
+    assert torch.equal(tp, td) and bool((tp < 3e38).all())
+    # the rays whose nearest t lies in two clusters or more that the gate
+    # lets the ray into even once that t is its best
+    ro, rd, inside, tmin = rays
+    cand = tflash._tri_candidates(coeffs, tflash.ray_features(ro, rd), inside, tmin)
+    cds, bounds, orig_of, _ = cull
+    nc = bounds.shape[1]
+    cluster_of = torch.empty(n_tri, dtype=torch.int64)
+    cluster_of[orig_of.long()[:n_tri]] = torch.arange(n_tri) // (cds[0].shape[0] // nc)
+    tnear, tfar = tflash._slab_distances(bounds[0:3, None, :], bounds[3:6, None, :], ro,
+                                         [1.0 / c for c in rd])
+    gated = tflash._crosses(tnear, tfar, tmin) & (tnear < td[:, None])
+    at_min = cand == td[None, :]
+    tied = torch.stack([(at_min & (cluster_of[:, None] == c)).any(0) for c in range(nc)], 1)
+    assert int(((tied & gated).sum(1) >= 2).sum()) > 50
+    assert int((ip != idd).sum()) > 100
