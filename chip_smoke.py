@@ -60,9 +60,13 @@ the ported paths on the card:
   triangles (stand-in meshes), earth and book2_final.
 
 With a copy of the parent commit's `miniraytracer_tpu_torch/csrc/` in
-`miniraytracer_tpu_torch/_build/parent_csrc/` (git-ignored), the cluster loop
-of B9-B13 is also timed against the parent's in turns (phases 13, 23, 25);
-without it that comparison is skipped.
+`miniraytracer_tpu_torch/_build/parent_csrc/` (git-ignored), the redesigned
+kernels are also held against the parent's builds in the same run: B1 bit
+for bit on the Cornell 500x500x64x32 frame (phase 5), B2 bit for bit at
+launch 50 and over the whole Cornell scan and at every launch of phases 6
+and 28, B3's d_f bit for bit (phase 7), B4 and B5 bit for bit (phases 9 and
+14), each timed in turns; and the cluster loop of B9-B13 is timed against
+the parent's (phases 13, 23, 25). Without it those comparisons are skipped.
 
 Each main path is driven with the kernels' launch counts set to 0 just before
 and read just after. Every phase raises on failure, so the exit code is
@@ -76,6 +80,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import ctypes
 import dataclasses
 import json
 import os
@@ -163,22 +168,22 @@ def cuda_and_host_ms(fn):
     return start.elapsed_time(end), host
 
 
-# The parent commit's design of the cluster loop of B9-B13 (flash.cu), for
-# timing the loop against it on the same card in the same run: a copy of the
+# The parent commit's kernels, for holding the redesigned ones against them
+# on the same card in the same run (B1 and B2 bit for bit, B3-B5 and the
+# cluster loop of B9-B13 too, each also timed in turns): a copy of the
 # parent's `miniraytracer_tpu_torch/csrc/` put into PARENT_CSRC, a git-ignored
 # directory, for that run only. Without it (a checkout of the repository) the
-# comparison is skipped and says so. Both libraries have the same C
-# interface, so the wrappers launch either (`launching`).
+# comparisons are skipped and say so. The libraries have the same C
+# interface, so the wrappers launch either (`launching`); B1's and B2's take
+# one argument more, the work counter, last, which the parent's ignore.
 PARENT_CSRC = os.path.join(HERE, "miniraytracer_tpu_torch", "_build", "parent_csrc")
-PARENT_KERNELS = ("flash",)
+PARENT_KERNELS = ("bounce", "bounce_ad", "flash", "hybrid")
 parent_libs: dict = {}
 
 
 def build_parent(kernels, name):
     """Build csrc/<name>.cu of PARENT_CSRC as `kernels.build` builds the
     checkout's, and load it: the CDLL, or None without PARENT_CSRC."""
-    import ctypes
-
     src = os.path.join(PARENT_CSRC, f"{name}.cu")
     if not os.path.exists(src):
         return None
@@ -222,6 +227,41 @@ def against_parent(kernels, name, fn, reps, rounds=1):
             with launching(kernels, name, libs[key]):
                 ms[key].append(cuda_ms(lambda: [fn() for _ in range(reps)], 1)[0] / reps)
     return ms["new"], ms["parent"]
+
+
+def equal_outputs(a, b) -> bool:
+    """Whether two kernel results (tensors, or tuples and lists of them) are
+    equal bit for bit."""
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(equal_outputs(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return a.shape == b.shape and torch.equal(a.view(torch.int32) if a.dtype == torch.float32
+                                                  else a, b.view(torch.int32)
+                                                  if b.dtype == torch.float32 else b)
+    return a == b
+
+
+def parent_equal(kernels, name, fn, what, check_bits=True, say=True):
+    """fn() with this checkout's csrc/<name>.cu and with the parent's: the two
+    results, or None without the parent's build. With `check_bits`, fails
+    unless they are equal bit for bit."""
+    if parent_libs.get(name) is None:
+        if say:
+            print(f"    {what}: the parent's build absent: not compared")
+        return None
+    with launching(kernels, name, parent_libs[name]):
+        old = fn()
+    new = fn()
+    if check_bits:
+        check(equal_outputs(new, old), f"{what}: differs from the parent's build")
+        if say:
+            print(f"    {what}: equal to the parent's build bit for bit")
+    return new, old
+
+
+def per_launch(res, launches):
+    """against_parent's times of a whole scan, a launch."""
+    return None if res is None else tuple([t / launches for t in ms] for ms in res)
 
 
 def print_against_parent(what, res, card_line):
@@ -360,6 +400,7 @@ def main() -> None:
     max_err = max(max_err, compare("cornell_box 500x500x4x32", k, p))
     pix = torch.arange(500 * 500, dtype=torch.int32, device=dev)
     kw = dict(width=500, height=500, max_bounces=32, spp_sq=2)
+    kw64 = dict(kw, spp_sq=8)
     run_k = lambda: bounce.render_wavefront_fused_pixels(scene, pix, 0, 4, 1000.0, **kw)
     run_p = lambda: bounce.render_wavefront_fused_pixels_plain(scene, pix, 0, 4, 1000.0, **kw)
     plain_ms, kernel_ms = [], []
@@ -368,6 +409,25 @@ def main() -> None:
         out.extend(cuda_ms(fn, 1))
     print(f"  500x500x4spp x32 bounces: kernel {kernel_ms} ms, plain {plain_ms} ms "
           f"on {card_line}")
+
+    # the redesign against the parent's build: the 64-spp frame bit for bit,
+    # then B1 alone on it in turns
+    print("  B1 (fused_render_kernel<STAGED>), ptxas -v:")
+    for line in ptxas_lines(kernels.build_log("bounce"), "fused_render_kernel"):
+        print("   ", line)
+    meta5, tables5 = bounce.pack_scene(scene)
+    grid = (ctypes.c_int * 5)()
+    kernels.load("bounce").mrt_fused_render_grid(
+        (ctypes.c_int * bounce._N_IPARAMS)(*bounce.kernel_params(meta5, 500 * 500, 0, 64, **kw64)),
+        grid)
+    print(f"  B1's grid: {grid[0]} blocks of {grid[3]} an SM (occupancy API) x {grid[1]} SMs = "
+          f"{grid[2]} blocks, {grid[4]} B of tables in shared memory")
+    frame64 = lambda: bounce._launch_kernel(meta5, tables5, pix, 0, 64, 1000.0, **kw64)
+    parent_equal(kernels, "bounce", frame64,
+                 "B1, the Cornell frame 500x500x64x32 (accum, count, rays of every pixel)")
+    b1_vs = print_against_parent("B1 alone, the Cornell frame 500x500x64x32",
+                                 against_parent(kernels, "bounce", frame64, 1, rounds=2),
+                                 card_line)
 
     rays_b1 = int(k[2].sum(dtype=torch.int64))
     n_px = 500 * 500
@@ -388,6 +448,8 @@ def main() -> None:
         "bound_ms": b1_bound,
         "bound_by": b1_by,
         "library_ms": None,
+        "frame_ms": b1_vs["new_ms"] if b1_vs else None,
+        "parent_frame_ms": b1_vs["parent_ms"] if b1_vs else None,
     }]
 
     print(f"phases 1-5 took {time.perf_counter() - t_start:.1f} s")
@@ -640,6 +702,8 @@ def launch_states(mrt, bounce, bounce_ad, scene, w, h, spp, bounces, plain):
 def train_phases(mrt, bounce, bounce_ad, dev, card_line):
     """Phases 6 and 7: the AD step kernels and the train step. Returns the
     two kernels' rows of the result line."""
+    from miniraytracer_tpu_torch.utils import kernels
+
     # 6. B2/B3 against their plain versions, five scenes, 64x64x2x8
     print("phase 6: AD step kernels vs plain PyTorch, 64x64, 2 spp, 8 bounces")
     w = h = 64
@@ -660,6 +724,10 @@ def train_phases(mrt, bounce, bounce_ad, dev, card_line):
                                (res_f[t], res_i[t], res_k[t], pix, sb), gen, f"{name} launch {t}")
             for k in ("fwd_err", "fwd_rel", "df_err", "df_rel", "dtab_rel"):
                 worst[k] = max(worst.get(k, 0.0), c[k])
+            same = parent_equal(kernels, "bounce_ad", c["run"]["fwd_k"], f"B2 {name} launch {t}",
+                                say=False)
+    print(f"  B2 at those launches of the five scenes: "
+          f"{'equal to the parent build bit for bit' if same else 'the parent build absent'}")
 
     # 7. the train step at full width: Cornell 500x500, 32 bounces, 128 spp/step
     w = h = 500
@@ -738,8 +806,6 @@ def train_phases(mrt, bounce, bounce_ad, dev, card_line):
           f"device time is {busy / med:.3f} of the median step)")
     for name, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:4]:
         print(f"    {ms:8.2f} ms  {100 * ms / busy:5.1f}%  x{count:<4d} {name[:90]}")
-    from miniraytracer_tpu_torch.utils import kernels
-
     print("  B3 (ad_step_bwd_kernel<EXT, EXT_MAT, IMAGE>, <false, false, false> the fused "
           "class), ptxas -v:")
     for line in ptxas_lines(kernels.build_log("bounce_ad"), "ad_step_bwd_kernel"):
@@ -762,7 +828,47 @@ def train_phases(mrt, bounce, bounce_ad, dev, card_line):
           f"(the host enqueues one in {b2_host:.3f} ms), B3 {b3_scan:.3f} ms a launch (host "
           f"{b3_host:.3f} ms), on {card_line}")
 
+    # the redesign against the parent's builds: B2 bit for bit at launch t_mid
+    # and over the whole scan, B3's d_f bit for bit and d_tab within its float
+    # atomics' spread; each timed in turns
     t_mid = outer // 4
+    print("  B2 (ad_step_fwd_kernel<EXT, EXT_MAT, IMAGE, STAGED>), ptxas -v:")
+    for line in ptxas_lines(kernels.build_log("bounce_ad"), "ad_step_fwd_kernel"):
+        print("   ", line)
+    grid = (ctypes.c_int * 5)()
+    kernels.load("bounce_ad").mrt_ad_step_fwd_grid(
+        (ctypes.c_int * bounce_ad._N_IPARAMS)(*bounce_ad.kernel_params(meta, cfg, w * h, t_mid)),
+        grid)
+    print(f"  B2's grid: {grid[0]} blocks of {grid[3]} an SM (occupancy API) x {grid[1]} SMs = "
+          f"{grid[2]} blocks, {grid[4]} B of tables in shared memory")
+    zeros = torch.zeros((3, w * h), device=dev)
+    f_mid = torch.cat([zeros, res_f[t_mid], zeros[:2]])
+    fwd_one = lambda: bounce_ad.ad_step_fwd(meta, cfg, tables, t_mid, f_mid, res_i[t_mid],
+                                            res_k[t_mid], pix, sb)
+    parent_equal(kernels, "bounce_ad", fwd_one, f"B2 at launch {t_mid}, every row")
+    parent_equal(kernels, "bounce_ad", lambda: bounce_ad.scan_forward(
+        meta, cfg, outer, tables, *state, pix, sb, keep=True),
+        "B2 over the whole scan, every launch's state and the last")
+    torch.cuda.empty_cache()
+    gen_b3 = torch.Generator(device=dev).manual_seed(3)
+    cot_mid = torch.randn((bounce_ad.NF, w * h), device=dev, generator=gen_b3)
+    bwd_one = lambda: bounce_ad.ad_step_bwd(meta, cfg, tables, t_mid, res_f[t_mid], res_i[t_mid],
+                                            res_k[t_mid], pix, sb, cot_mid, None)
+    both_b3 = parent_equal(kernels, "bounce_ad", bwd_one, "B3", check_bits=False)
+    if both_b3 is not None:
+        (d_new, tab_new), (d_old, tab_old) = both_b3
+        tab_rel = float((tab_new - tab_old).abs().max() / tab_old.abs().max().clamp_min(1e-30))
+        print(f"    B3 at launch {t_mid}: d_f equal to the parent's bit for bit: "
+              f"{equal_outputs(d_new, d_old)}; d_tab max err {tab_rel:.3g} of its largest entry")
+        check(equal_outputs(d_new, d_old) and tab_rel <= 2e-4, "B3 differs from the parent's")
+    b2_vs = [print_against_parent(what, res, card_line) for what, res in (
+        (f"B2 at launch {t_mid}", against_parent(kernels, "bounce_ad", fwd_one, 10, rounds=2)),
+        (f"B2 over the scan, a launch", per_launch(
+            against_parent(kernels, "bounce_ad", fwd_scan, 1, rounds=2), outer)),
+        (f"B3 at launch {t_mid}", against_parent(kernels, "bounce_ad", bwd_one, 5, rounds=2)),
+        (f"B3 over the scan, a launch", per_launch(
+            against_parent(kernels, "bounce_ad", bwd_scan, 1, rounds=2), outer)))]
+
     print(f"  launch {t_mid} of the scan, {w * h} lanes, kernels vs plain:")
     c = compare_launch(bounce_ad, (meta, cfg, tables, t_mid),
                        (res_f[t_mid], res_i[t_mid], res_k[t_mid], pix, sb), gen,
@@ -801,14 +907,14 @@ def train_phases(mrt, bounce, bounce_ad, dev, card_line):
          "lanes_agreeing": c["agree"],
          "ms": statistics.mean(ms["fwd_k"]), "plain_ms": statistics.mean(ms["fwd_p"]),
          "bound_ms": b2_bound, "bound_by": b2_by, "scan_ms_per_launch": b2_scan,
-         "scan_bound_ms_per_launch": b2_mean, **common},
+         "scan_bound_ms_per_launch": b2_mean, "vs_parent": b2_vs[:2], **common},
         {"name": "ad_step_bwd", "replaces": "miniraytracer_tpu/ops/bounce_ad.py:276",
          "launches": bwd_launches, "max_abs_err": max(worst["df_err"], c["df_err"]),
          "err_scale": c["df_scale"], "max_rel_lane_err": max(worst["df_rel"], c["df_rel"]),
          "lanes_agreeing": c["df_close"],
          "ms": statistics.mean(ms["bwd_k"]), "plain_ms": statistics.mean(ms["bwd_p"]),
          "bound_ms": b3_bound, "bound_by": b3_by, "scan_ms_per_launch": b3_scan,
-         "scan_bound_ms_per_launch": b3_mean, **common},
+         "scan_bound_ms_per_launch": b3_mean, "vs_parent": b2_vs[2:], **common},
     ]
 
 
@@ -926,6 +1032,8 @@ def compare_step(where, hybrid, kernel_out, plain_out):
 def hybrid_phases(mrt, bounce, flash, hybrid, dev, card_line, refs):
     """Phases 8 to 12: the dense sweeps, the hybrid step and the hybrid
     render. Returns the three kernels' rows of the result line."""
+    from miniraytracer_tpu_torch.utils import kernels
+
     w = h = 500
     n = w * h
     scenes = {"random_spheres": mrt.scenes.random_spheres(1.0).to(dev),
@@ -1015,6 +1123,10 @@ def hybrid_phases(mrt, bounce, flash, hybrid, dev, card_line, refs):
         live * step_ops_per_ray(cfg.meta))
     print(f"  B4 random_spheres step 2 ({live} lanes alive): kernel {b4_k} ms, plain {b4_p} ms, "
           f"bound {b4_bound:.4f} ms by {b4_by} on {card_line}")
+    b4_one = lambda: hybrid.hybrid_step(cfg, *state, pix, ext)
+    parent_equal(kernels, "hybrid", b4_one, "B4 random_spheres step 2, every row")
+    b4_vs = print_against_parent("B4 random_spheres step 2",
+                                 against_parent(kernels, "hybrid", b4_one, 10, rounds=2), card_line)
     del snaps_rs, snaps, sweeps, b4, state, ext, args
     torch.cuda.empty_cache()
 
@@ -1113,7 +1225,7 @@ def hybrid_phases(mrt, bounce, flash, hybrid, dev, card_line, refs):
          "replaces": "miniraytracer_tpu/ops/hybrid.py:517", "launches": b4_launches,
          "max_abs_err": step_err, "lanes_agreeing": step_share, "ms": statistics.mean(b4_k),
          "plain_ms": statistics.mean(b4_p), "bound_ms": b4_bound, "bound_by": b4_by,
-         "frame_ms": med, "frame_steps": stats["steps"], **common},
+         "frame_ms": med, "frame_steps": stats["steps"], "vs_parent": b4_vs, **common},
     ]
 
 
@@ -1343,6 +1455,10 @@ def queue_phases(mrt, bounce, flash, hybrid, dev, card_line, refs, hybrid_row):
         live * step_ops_per_ray(cfg.meta))
     print(f"  B5 earth step 2 ({n} lanes, {live} alive): kernel {b5_k} ms, plain {b5_p} ms, "
           f"bound {b5_bound:.4f} ms by {b5_by} on {card_line}")
+    b5_one = lambda: hybrid.shade_step(*b5)
+    parent_equal(kernels, "hybrid", b5_one, "B5 earth step 2, every row")
+    b5_vs = print_against_parent("B5 earth step 2",
+                                 against_parent(kernels, "hybrid", b5_one, 10, rounds=2), card_line)
     del snaps, b5
     torch.cuda.empty_cache()
 
@@ -1460,7 +1576,7 @@ def queue_phases(mrt, bounce, flash, hybrid, dev, card_line, refs, hybrid_row):
          "ms": statistics.mean(b5_k), "plain_ms": statistics.mean(b5_p), "bound_ms": b5_bound,
          "bound_by": b5_by, "frame_ms_earth": ms_earth, "frame_steps_earth": st_earth["steps"],
          "frame_ms_book2_final": ms_book2, "frame_steps_book2_final": st_book2["steps"],
-         "max_abs_err": shade_err, **common},
+         "max_abs_err": shade_err, "vs_parent": b5_vs, **common},
         {"name": "flash_sphere_hit_streamed", "source": src + "flash.cu",
          "replaces": "miniraytracer_tpu/ops/flash.py:1175", "launches": c_5000["b12"],
          "frame_ms": ms_5000, "frame_steps": st_5000["steps"],
@@ -2080,6 +2196,8 @@ def ext_train_phases(mrt, bounce, bounce_ad, flash, hybrid, dev, card_line, size
     `small` x `small`) and `make_train_step(fused_ad="ext")` (at `size` x
     `size`). Returns the rows of the three modes' kernels (forward and
     backward) of the result line."""
+    from miniraytracer_tpu_torch.utils import kernels
+
     A = bounce_ad
     t_phase = time.perf_counter()
     scenes_cpu = {name: ext_scene(mrt, name) for name in EXT_SCENES}
@@ -2107,6 +2225,10 @@ def ext_train_phases(mrt, bounce, bounce_ad, flash, hybrid, dev, card_line, size
                                f"{name} ({mode}) launch {t}", ext, images)
             for key in ("fwd_err", "fwd_rel", "df_err", "df_rel", "dtab_rel"):
                 worst[mode, key] = max(worst.get((mode, key), 0.0), c[key])
+            same = parent_equal(kernels, "bounce_ad", c["run"]["fwd_k"],
+                                f"B2 {name} ({mode}) launch {t}", say=False)
+    print(f"  B2 at those launches in the five modes: "
+          f"{'equal to the parent build bit for bit' if same else 'the parent build absent'}")
 
     print(f"  phase 28 took {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()

@@ -51,8 +51,11 @@
 // What bounds them on this card: per-lane ALU work and warp divergence, as in
 // the fused render; the state traffic (19+3+1 words in and out per lane per
 // launch, 13+3+1+19 in and 19 out for the backward) is what `k_sub` sub-steps
-// per launch amortise. The backward keeps `k_sub` entry states and bounce
-// records in local memory. One thread per lane, 128-thread blocks.
+// per launch amortise. The forward runs as the fused render does: a
+// persistent grid of 128-thread blocks whose threads take lanes from a work
+// counter, the scene tables staged in shared memory, no local memory. The
+// backward keeps `k_sub` entry states and bounce records in local memory,
+// one thread per lane, 128-thread blocks.
 //
 // Build: as bounce.cu (utils/kernels.py), --fmad=false so that the replay
 // takes the decisions the plain version takes.
@@ -245,39 +248,48 @@ __device__ __forceinline__ ExtCand load_ext(const float* __restrict__ e, int n, 
 // B2: the forward step
 // ---------------------------------------------------------------------------
 
-template <bool EXT, bool EXT_MAT, bool IMAGE>
-__global__ void __launch_bounds__(MRT_AD_THREADS)
-ad_step_fwd_kernel(Tables tb, AdParams P, Atlas atlas, const float* __restrict__ f_in,
+// A persistent grid (physics.cuh): each thread takes a lane from the work
+// counter, runs its `k_sub` sub-steps and takes the next, so no block waits on
+// a tail wave; with STAGED the scene tables are read from shared memory.
+// (threads, 1), as B1: the staged fused instance compiles to the same 89
+// registers either way, and the unstaged one (tables past the budget) keeps
+// no spill (92 registers against 80 with 16 B spilled)
+template <bool EXT, bool EXT_MAT, bool IMAGE, bool STAGED>
+__global__ void __launch_bounds__(MRT_AD_THREADS, 1)
+ad_step_fwd_kernel(Tables tb_in, AdParams P, Atlas atlas, const float* __restrict__ f_in,
                    const int* __restrict__ i_in, const int* __restrict__ k_in,
                    const int* __restrict__ pix_in, const int* __restrict__ sb_in,
                    const float* __restrict__ ext_in, float* __restrict__ f_out,
-                   int* __restrict__ i_out, int* __restrict__ k_out) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+                   int* __restrict__ i_out, int* __restrict__ k_out, int* __restrict__ work) {
+  MRT_DYNAMIC_SHARED(smem);
+  Tables tb = tb_in;
+  if (STAGED) tb = stage_tables(tb_in, P, smem);
   const int n = P.n;
-  if (lane >= n) return;
-  const uint32_t pix = (uint32_t)pix_in[lane];
-  const int sampbase = sb_in[lane];
-  LaneState s = load_state(f_in + A_RO * n, n, i_in, k_in, n, lane);
-  V3 summ = v3(f_in[lane], f_in[n + lane], f_in[2 * n + lane]);
-  float nvalid = f_in[A_NV * n + lane];
-  float rays = f_in[A_RAYS * n + lane];
-  const ExtCand ext = load_ext<EXT, EXT_MAT>(ext_in, n, lane);
-  for (int j = 0; j < P.k_sub; ++j)
-    ad_substep<EXT, EXT_MAT, IMAGE>(tb, P, ext, atlas, pix, sampbase, P.t_step * P.k_sub + j,
-                                    s, summ, nvalid, rays, nullptr);
-  store3(f_out, A_SUM, n, lane, summ);
-  store3(f_out, A_RO, n, lane, s.ro);
-  store3(f_out, A_RD, n, lane, s.rd);
-  f_out[A_TIME * n + lane] = s.time;
-  store3(f_out, A_BETA, n, lane, s.beta);
-  store3(f_out, A_RAD, n, lane, s.rad);
-  f_out[A_ALIVE * n + lane] = s.alive ? 1.0f : 0.0f;
-  f_out[A_NV * n + lane] = nvalid;
-  f_out[A_RAYS * n + lane] = rays;
-  i_out[lane] = s.count;
-  i_out[n + lane] = s.inside;
-  i_out[2 * n + lane] = s.depth;
-  k_out[lane] = (int)s.key;
+  for (int lane = claim_unit(work); lane < n; lane = claim_unit(work)) {
+    const uint32_t pix = (uint32_t)pix_in[lane];
+    const int sampbase = sb_in[lane];
+    LaneState s = load_state(f_in + A_RO * n, n, i_in, k_in, n, lane);
+    V3 summ = v3(f_in[lane], f_in[n + lane], f_in[2 * n + lane]);
+    float nvalid = f_in[A_NV * n + lane];
+    float rays = f_in[A_RAYS * n + lane];
+    const ExtCand ext = load_ext<EXT, EXT_MAT>(ext_in, n, lane);
+    for (int j = 0; j < P.k_sub; ++j)
+      ad_substep<EXT, EXT_MAT, IMAGE>(tb, P, ext, atlas, pix, sampbase, P.t_step * P.k_sub + j,
+                                      s, summ, nvalid, rays, nullptr);
+    store3(f_out, A_SUM, n, lane, summ);
+    store3(f_out, A_RO, n, lane, s.ro);
+    store3(f_out, A_RD, n, lane, s.rd);
+    f_out[A_TIME * n + lane] = s.time;
+    store3(f_out, A_BETA, n, lane, s.beta);
+    store3(f_out, A_RAD, n, lane, s.rad);
+    f_out[A_ALIVE * n + lane] = s.alive ? 1.0f : 0.0f;
+    f_out[A_NV * n + lane] = nvalid;
+    f_out[A_RAYS * n + lane] = rays;
+    i_out[lane] = s.count;
+    i_out[n + lane] = s.inside;
+    i_out[2 * n + lane] = s.depth;
+    k_out[lane] = (int)s.key;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1169,15 +1181,29 @@ int read_mode(const int* xp, const AdParams& P, const uint32_t* texels, Atlas& a
 
 constexpr int INVALID_VALUE = 1;  // cudaErrorInvalidValue
 
+template <bool EXT, bool EXT_MAT, bool IMAGE, bool STAGED>
+Grid fwd_grid(const AdParams& P) {
+  return persistent_grid(ad_step_fwd_kernel<EXT, EXT_MAT, IMAGE, STAGED>, MRT_AD_THREADS,
+                         STAGED ? stage_bytes(P) : 0, P.n);
+}
+
 template <bool EXT, bool EXT_MAT, bool IMAGE>
 int launch_fwd(const Tables& tb, const AdParams& P, const Atlas& atlas, const float* f_in,
                const int* i_in, const int* k_in, const int* pix, const int* sb, const float* ext,
-               float* f_out, int* i_out, int* k_out, void* stream) {
-  const int threads = MRT_AD_THREADS;
-  const int blocks = (P.n + threads - 1) / threads;
-  auto kernel = ad_step_fwd_kernel<EXT, EXT_MAT, IMAGE>;
-  MRT_LAUNCH(kernel, blocks, threads, 0, stream, tb, P, atlas, f_in, i_in, k_in, pix, sb, ext,
-             f_out, i_out, k_out);
+               float* f_out, int* i_out, int* k_out, int* work, void* stream) {
+  cudaMemsetAsync(work, 0, sizeof(int), (cudaStream_t)stream);
+  const int smem = stage_bytes(P);
+  if (smem > 0) {
+    const Grid g = fwd_grid<EXT, EXT_MAT, IMAGE, true>(P);
+    auto kernel = ad_step_fwd_kernel<EXT, EXT_MAT, IMAGE, true>;
+    MRT_LAUNCH(kernel, g.blocks, MRT_AD_THREADS, smem, stream, tb, P, atlas, f_in, i_in, k_in,
+               pix, sb, ext, f_out, i_out, k_out, work);
+  } else {
+    const Grid g = fwd_grid<EXT, EXT_MAT, IMAGE, false>(P);
+    auto kernel = ad_step_fwd_kernel<EXT, EXT_MAT, IMAGE, false>;
+    MRT_LAUNCH(kernel, g.blocks, MRT_AD_THREADS, 0, stream, tb, P, atlas, f_in, i_in, k_in, pix,
+               sb, ext, f_out, i_out, k_out, work);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1204,13 +1230,15 @@ extern "C" {
 // 0x00RRGGBB), each unused (and may be null) in the modes without them. They
 // return the launch's cudaError_t (0 on success).
 
-// One scan step forward: f (19, n), ist (3, n), keys (n) -> *_out.
+// One scan step forward: f (19, n), ist (3, n), keys (n) -> *_out. `work` is
+// one int of device memory, the work counter, which the call zeroes on the
+// stream.
 int mrt_ad_step_fwd(const float* sph, const float* rect, const float* tri, const float* box,
                     const float* vol, const float* mat, const float* tex, const float* cam,
                     const float* ptab, const float* f_in, const int* i_in, const int* k_in,
                     const int* pix, const int* sb, const float* ext, const uint32_t* texels,
                     float* f_out, int* i_out, int* k_out, const int* ip, const int* xp,
-                    void* stream) {
+                    void* stream, int* work) {
   Tables tb{sph, rect, tri, box, vol, mat, tex, cam, ptab};
   AdParams P;
   Atlas atlas;
@@ -1220,15 +1248,15 @@ int mrt_ad_step_fwd(const float* sph, const float* rect, const float* tri, const
   if (P.n <= 0) return 0;
   switch (mode) {
     case 0: return launch_fwd<false, false, false>(tb, P, atlas, f_in, i_in, k_in, pix, sb, ext,
-                                                   f_out, i_out, k_out, stream);
+                                                   f_out, i_out, k_out, work, stream);
     case 1: return launch_fwd<true, false, false>(tb, P, atlas, f_in, i_in, k_in, pix, sb, ext,
-                                                  f_out, i_out, k_out, stream);
+                                                  f_out, i_out, k_out, work, stream);
     case 2: return launch_fwd<true, true, false>(tb, P, atlas, f_in, i_in, k_in, pix, sb, ext,
-                                                 f_out, i_out, k_out, stream);
+                                                 f_out, i_out, k_out, work, stream);
     case 3: return launch_fwd<true, false, true>(tb, P, atlas, f_in, i_in, k_in, pix, sb, ext,
-                                                 f_out, i_out, k_out, stream);
+                                                 f_out, i_out, k_out, work, stream);
     default: return launch_fwd<true, true, true>(tb, P, atlas, f_in, i_in, k_in, pix, sb, ext,
-                                                 f_out, i_out, k_out, stream);
+                                                 f_out, i_out, k_out, work, stream);
   }
 }
 
@@ -1261,6 +1289,22 @@ int mrt_ad_step_bwd(const float* sph, const float* rect, const float* tri, const
     default: return launch_bwd<true, true, true>(tb, P, atlas, res, i_in, k_in, pix, sb, ext,
                                                  cot, d_f, d_ext, d_tab, stream);
   }
+}
+
+// The grid of a forward launch of the fused class for the parameter block
+// `ip`: blocks an SM holds, SMs, blocks, threads a block, dynamic shared
+// memory in bytes (0: the tables stay in global memory).
+void mrt_ad_step_fwd_grid(const int* ip, int* out) {
+  AdParams P;
+  read_params(ip, P);
+  const int smem = stage_bytes(P);
+  const Grid g = smem > 0 ? fwd_grid<false, false, false, true>(P)
+                          : fwd_grid<false, false, false, false>(P);
+  out[0] = g.per_sm;
+  out[1] = g.sms;
+  out[2] = g.blocks;
+  out[3] = MRT_AD_THREADS;
+  out[4] = smem;
 }
 
 const char* mrt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -5,7 +5,8 @@
 //       -DMRT_AD_THREADS=1 -shared -fPIC -o libbounce_ad_host.so bounce_ad.cu
 //
 // A launch runs the kernel body once per (block, thread), one after the other,
-// on host pointers. Blocks of one thread (MRT_AD_THREADS=1) make
+// on host pointers. Blocks of one thread (MRT_AD_THREADS=1,
+// MRT_BOUNCE_THREADS=1) make
 // __syncthreads() a no-op that is still correct. It checks logic and
 // arithmetic, not the GPU build: nvcc still has to compile the source.
 
@@ -63,10 +64,60 @@ static inline float __uint_as_float(uint32_t u) {
   return f;
 }
 
+static inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  memcpy(&u, &f, sizeof u);
+  return u;
+}
+
+// round to the nearest int, ties to even, saturating; NaN -> 0 (cvt.rni.s32.f32)
+static inline int __float2int_rn(float x) {
+  if (!(x == x)) return 0;
+  if (x >= 2147483647.0f) return 2147483647;
+  if (x <= -2147483648.0f) return -2147483647 - 1;
+  return (int)nearbyintf(x);
+}
+
 static inline float atomicAdd(float* p, float v) {
   float old = *p;
   *p = old + v;
   return old;
+}
+
+static inline int atomicAdd(int* p, int v) {
+  int old = *p;
+  *p = old + v;
+  return old;
+}
+
+static inline cudaError_t cudaMemsetAsync(void* p, int value, size_t bytes, cudaStream_t) {
+  memset(p, value, bytes);
+  return 0;
+}
+
+// The dynamic shared memory of a block: one static buffer, which each block
+// (they run one after the other) stages anew.
+#define MRT_DYNAMIC_SHARED(name) static float name[MRT_EMULATED_SMEM_WORDS]
+#define MRT_EMULATED_SMEM_WORDS (48 * 1024 / 4)
+
+// A persistent grid of the emulated card: one block an SM and MRT_EMULATED_SMS
+// SMs, so that a launch of a few threads takes more units of work than it
+// has threads.
+#define MRT_EMULATED_SMS 3
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+template <typename Kernel>
+static inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, Kernel, int,
+                                                                        size_t) {
+  *n = 1;
+  return 0;
+}
+static inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return 0;
+}
+static inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = MRT_EMULATED_SMS;
+  return 0;
 }
 
 #define MRT_LAUNCH(kernel, blocks, threads, smem, stream, ...)       \

@@ -935,18 +935,19 @@ def _launch_kernel(meta, tables, pix, sample_lo, n_samples, max_lum, **kw):
     accum = torch.empty((n, 3), dtype=torch.float32, device=dev)
     count = torch.empty((n,), dtype=torch.int32, device=dev)
     rays = torch.empty((n,), dtype=torch.int32, device=dev)
+    work = torch.empty((1,), dtype=torch.int32, device=dev)  # zeroed by the launch
     lib = kernels.load("bounce")
     fn = lib.mrt_fused_render
     fn.argtypes = ([ctypes.c_void_p] * 13
                    + [ctypes.POINTER(ctypes.c_int), ctypes.c_float,
-                      ctypes.c_void_p])
+                      ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*[t.data_ptr() for t in tables], pix.data_ptr(),
                 accum.data_ptr(), count.data_ptr(), rays.data_ptr(),
                 (ctypes.c_int * _N_IPARAMS)(*ip), ctypes.c_float(max_lum),
-                stream)
+                stream, work.data_ptr())
     if rc != 0:
         raise RuntimeError(f"mrt_fused_render failed: {kernels.error_string(lib, rc)}")
     launches += 1

@@ -412,10 +412,11 @@ def ad_step_fwd(meta, cfg, tables, t_step, fstate, istate, keys, pix, sb, ext=No
     ext_p, tex_p, xp = _ext_args(meta, dev, n, ext, images)
     f_out, i_out, k_out = (torch.empty_like(fstate), torch.empty_like(istate),
                            torch.empty_like(keys))
+    work = torch.empty((1,), dtype=torch.int32, device=dev)  # zeroed by the launch
     lib = kernels.load("bounce_ad")
     fn = lib.mrt_ad_step_fwd
     fn.argtypes = ([ctypes.c_void_p] * 19
-                   + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_void_p])
+                   + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -423,7 +424,7 @@ def ad_step_fwd(meta, cfg, tables, t_step, fstate, istate, keys, pix, sb, ext=No
                 istate.data_ptr(), keys.data_ptr(), pix.data_ptr(),
                 sb.data_ptr(), ext_p, tex_p, f_out.data_ptr(), i_out.data_ptr(),
                 k_out.data_ptr(), (ctypes.c_int * _N_IPARAMS)(*ip),
-                (ctypes.c_int * _N_XPARAMS)(*xp), stream)
+                (ctypes.c_int * _N_XPARAMS)(*xp), stream, work.data_ptr())
     if rc != 0:
         raise RuntimeError(
             f"mrt_ad_step_fwd failed: {kernels.error_string(lib, rc)}")

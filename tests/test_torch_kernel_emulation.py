@@ -72,7 +72,7 @@ def host_libraries(tmp_path_factory):
         subprocess.run(
             [gxx, "-O1", "-std=c++17", "-ffp-contract=off", "-x", "c++",
              "-DMRT_HOST_EMULATION", "-DMRT_AD_THREADS=1", "-DMRT_FLASH_THREADS=1",
-             "-DMRT_NOISE_THREADS=1",
+             "-DMRT_NOISE_THREADS=1", "-DMRT_BOUNCE_THREADS=1",
              "-shared", "-fPIC",
              "-o", str(path), str(kernels.CSRC / f"{name}.cu")],
             check=True, capture_output=True, text=True, timeout=300)
@@ -247,6 +247,119 @@ def test_emulated_fused_render_matches_plain(host_libraries, monkeypatch, name):
     assert torch.equal(ck, cp) and torch.equal(rk, rp)
     frame = lambda a, c: a / c.clamp_min(1)[:, None].float()
     torch.testing.assert_close(frame(ak, ck), frame(ap, cp), rtol=0, atol=1e-5)
+
+
+def _grid(lib, fn, ip):
+    """(blocks an SM holds, SMs, blocks, threads a block, dynamic shared bytes)
+    of a launch of B1 (`mrt_fused_render_grid`) or B2 (`mrt_ad_step_fwd_grid`)."""
+    out = (ctypes.c_int * 5)()
+    getattr(lib, fn)((ctypes.c_int * len(ip))(*ip), out)
+    return tuple(out)
+
+
+def _b1_case(scene, pix, w, h):
+    """B1 on the pixels `pix` through the wrapper, against the plain version:
+    equal ray and sample counts, frames within 1e-5."""
+    kw = dict(width=w, height=h, max_bounces=6, spp_sq=2)
+    meta, tables = tbounce.pack_scene(scene)
+    launches = tbounce.launches
+    ak, ck, rk = tbounce._launch_kernel(meta, tables, pix, 0, 4, 1000.0, **kw)
+    assert tbounce.launches == launches + 1
+    ap, cp, rp = tbounce.render_wavefront_fused_pixels_plain(scene, pix, 0, 4, 1000.0, **kw)
+    assert torch.equal(ck, cp) and torch.equal(rk, rp)
+    frame = lambda a, c: a / c.clamp_min(1)[:, None].float()
+    torch.testing.assert_close(frame(ak, ck), frame(ap, cp), rtol=0, atol=1e-5)
+
+
+def _b2_case(scene, w, h, launches_at):
+    """B2 launch by launch from the plain scan's states, at the launches in
+    `launches_at`: integers and keys equal, floats within 1e-6 of the state's
+    scale and of 1+|plain|."""
+    meta, tables = tbounce.pack_scene(scene)
+    spp, bounces = 2, 6
+    _, claim, k_sub, outer = tad.scan_plan(spp, bounces, spp * (bounces + 1) + 2, 2)
+    cfg = tad.StepConfig(w, h, 8, bounces, spp, claim, k_sub)
+    pix = torch.arange(w * h, dtype=torch.int32)
+    sb = torch.zeros_like(pix)
+    f, i, k = tad.initial_state(scene, pix, sb, spp, width=w, height=h, sq_off=8)
+    for t in range(max(launches_at) + 1):
+        args = (meta, cfg, tables, t)
+        fp, ip, kp = tad.ad_step_fwd_plain(*args, f, i, k, pix, sb)
+        if t in launches_at:
+            fk, ik, kk = tad.ad_step_fwd(*args, f, i, k, pix, sb)
+            assert torch.equal(ik, ip) and torch.equal(kk, kp), t
+            scale = float(fp.abs().max().clamp_min(1.0))
+            assert float((fk - fp).abs().max()) <= 1e-6 * scale, t
+            other = [r for r in range(tad.NF) if not tad.A_RO <= r < tad.A_RD]
+            assert ((fk - fp).abs() <= 1e-6 * (1 + fp.abs()))[other].all(), t
+        f, i, k = fp, ip, kp
+    return meta, cfg
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_emulated_persistent_grids_take_several_units(emulated, host_libraries, name):
+    """B1 and B2 on a persistent grid of fewer threads than pixels or lanes
+    (the emulated card holds 3 one-thread blocks), so that a thread takes
+    unit after unit from the work counter: B1 on the pixels in a shuffled
+    order (a unit is not its pixel), B2 at the first three launches of a
+    scan, each against its plain version; the tables are staged."""
+    scene = _scene(name)
+    w = h = 12
+    n = w * h
+    pix = torch.as_tensor(np.random.default_rng(5).permutation(n).astype(np.int32))
+    meta, _ = tbounce.pack_scene(scene)
+    ip = tbounce.kernel_params(meta, n, 0, 4, width=w, height=h, max_bounces=6, spp_sq=2)
+    per_sm, sms, blocks, threads, smem = _grid(host_libraries["bounce"],
+                                               "mrt_fused_render_grid", ip)
+    assert blocks * threads < n and smem > 0, (blocks, threads, smem)
+    _b1_case(scene, pix, w, h)
+    meta, cfg = _b2_case(scene, w, h, (0, 1, 2))
+    per_sm, sms, blocks, threads, smem = _grid(host_libraries["bounce_ad"],
+                                               "mrt_ad_step_fwd_grid",
+                                               tad.kernel_params(meta, cfg, n, 0))
+    assert blocks * threads < n and smem > 0, (blocks, threads, smem)
+
+
+def _many_boxes(n_boxes):
+    """A fused-class scene of `n_boxes` small boxes on a floor under a rect
+    light: tables past the kernels' shared-memory budget (`can_fuse` caps
+    no box count)."""
+    b = SceneBuilder()
+    b.name = "many_boxes"
+    b.set_camera([0, 3, 6], [0, 0, 0], [0, 1, 0], 50.0, 1.0, aperture=0.0, focus_dist=6.0,
+                 t0=0.0, t1=1.0)
+    gray = b.lambertian(b.tex_const([0.6, 0.6, 0.6]))
+    red = b.lambertian(b.tex_const([0.8, 0.3, 0.2]))
+    lm = b.diffuse_light(b.tex_const([6, 6, 6]))
+    b.sphere([0, -1000, 0], 1000, gray)
+    side = int(np.ceil(np.sqrt(n_boxes)))
+    for j in range(n_boxes):
+        x, z = -3 + 6 * (j % side) / side, -3 + 6 * (j // side) / side
+        b.box([x, 0, z], [x + 0.1, 0.1 + 0.02 * (j % 7), z + 0.1], red if j % 3 else gray,
+              rot_y_deg=float(j % 45))
+    b.add_light(b.xz_rect(-1, 1, -1, 1, 3.0, lm))
+    return b.build()
+
+
+def test_emulated_tables_beyond_the_stage_budget(emulated, host_libraries):
+    """A fused-class scene whose tables exceed the shared-memory budget of B1
+    and B2 (600 boxes, 31 KB) runs their unstaged instances, which read the
+    tables from global memory, and still equals the plain versions; the
+    Cornell box's tables are staged."""
+    scene = _many_boxes(600)
+    assert tbounce.can_fuse(scene)
+    w = h = 8
+    meta, _ = tbounce.pack_scene(scene)
+    ip = tbounce.kernel_params(meta, w * h, 0, 4, width=w, height=h, max_bounces=6, spp_sq=2)
+    assert _grid(host_libraries["bounce"], "mrt_fused_render_grid", ip)[4] == 0
+    cornell, _ = tbounce.pack_scene(_scene("cornell_box"))
+    ip_c = tbounce.kernel_params(cornell, w * h, 0, 4, width=w, height=h, max_bounces=6,
+                                 spp_sq=2)
+    assert 0 < _grid(host_libraries["bounce"], "mrt_fused_render_grid", ip_c)[4] < 1024
+    _b1_case(scene, torch.arange(w * h, dtype=torch.int32), w, h)
+    meta, cfg = _b2_case(scene, w, h, (0, 2))
+    assert _grid(host_libraries["bounce_ad"], "mrt_ad_step_fwd_grid",
+                 tad.kernel_params(meta, cfg, w * h, 0))[4] == 0
 
 
 def _sweep_rays(n, seed):

@@ -1,59 +1,175 @@
-"""Time design variants of two kernels of the port in turns on one card.
+"""Time design variants of kernels of the port in turns on one card.
 
-    python3 time_designs.py DIR [DIR ...]
+    python3 time_designs.py [--only GROUPS] [--count] [--trig] DIR [DIR ...]
 
-Each DIR holds a variant of `miniraytracer_tpu_torch/csrc/`: a `flash.cu`
-(the cluster loop of B9-B13) or a `bounce_ad.cu` (B2/B3), with the headers
-they include. Keep the directories in a git-ignored place such as
-`_checkout/`. Each is built with the port's nvcc flags (`utils/kernels.py`)
-into a library beside its source; the wrappers launch it in place of the
-checkout's build of the same name. The first variant of each kind is the
-reference: every other one must give its results (the sweeps: t and index
-equal on every ray; B3: `d_f` within `chip_smoke.compare_launch`'s per-lane
-tolerance). Then, in turns (all variants, the order reversed every other
-round, each warmed first), with CUDA events:
+Each DIR is a copy of `miniraytracer_tpu_torch/csrc/` holding a variant of
+one or more of `bounce.cu` (B1), `bounce_ad.cu` (B2/B3) and `flash.cu` (the
+cluster loop of B9-B13), with the headers they include. Keep the directories
+in a git-ignored place such as `_checkout/designs/`. Each source is built
+with the port's nvcc flags (`utils/kernels.py`) into a library beside it; the
+wrappers launch it in place of the checkout's build of the same name. The
+first variant of each kind is the reference that every other one must equal.
+Then, in turns (all variants, the order reversed every other round, each
+warmed first), with CUDA events:
 
-- bounce_ad.cu: B3 at launch 50 of the Cornell box's scan (500x500, 32
-  bounces, 128 samples a pixel) and over that whole scan, and in each ext
-  mode at launch 20 of a 500x500, 8-sample scan (triangles with stand-in
-  meshes: ext; random_spheres: ext-material; earth: image);
-- flash.cu: B10 alone (from a visiting plan made once) on the rays of queue
-  steps 2 and 10 of the triangles scene at 500x500, from the nearest rect's
-  distance as the work queue seeds it, with how its gated (ray, cluster)
-  pairs spread over warps of 32 sorted rays; B13 on book2_final's and B12 on
-  a 5000-sphere scene's queue step 2.
+- b1 (bounce.cu): B1 alone on the Cornell box's frame at 500x500, 32
+  bounces, 64 and 4 samples a pixel; accum, count and rays equal to the
+  reference's on every pixel;
+- b2 (bounce_ad.cu): B2 at launch 50 of the Cornell box's scan (500x500, 32
+  bounces, 128 samples a pixel) and over that whole scan (with the host's
+  time to enqueue it), every row of that launch and every launch's state of
+  the scan equal to the reference's; and in each ext mode at launch 20 of a
+  500x500, 8-sample scan (triangles with stand-in meshes: ext;
+  random_spheres: ext-material; earth: image);
+- b3 (bounce_ad.cu): B3 at launch 50 of the Cornell scan and over the whole
+  scan, and in each ext mode at launch 20 (`d_f` within
+  `chip_smoke.compare_launch`'s per-lane tolerance of the reference's);
+- cluster (flash.cu): B10 alone (from a visiting plan made once) on the rays
+  of queue steps 2 and 10 of the triangles scene at 500x500, from the nearest
+  rect's distance as the work queue seeds it, with how its gated (ray,
+  cluster) pairs spread over warps of 32 sorted rays; B13 on book2_final's
+  and B12 on a 5000-sphere scene's queue step 2 (t and index equal on every
+  ray).
 
-Prints each variant's registers and stack (ptxas -v), the card's name and
-power limit, and per timing the median and the runs in ms.
+`--only b1,b2` picks groups (default: every group whose source a DIR holds).
+`--trig` holds the last DIR's `exact_sinf`/`exact_cosf` (physics.cuh) against
+CUDA's sinf/cosf on all 2^32 float inputs, bit for bit.
+Prints each variant's registers, stack and spills (ptxas -v), its SASS's
+local (LDL/STL), shared (LDS), global (LDG) and generic (LD) loads and calls,
+the grid a launch of B1 and B2 takes (blocks an SM holds from the occupancy
+API, SMs, blocks), the card's name and power limit, and per timing the median
+and the runs in ms. With `--count`, B1 and B2 of each variant are also built
+with lane counters (`lane_counting_copy`, never part of the port) and run
+once on the Cornell frame and scan: the share of a warp's lanes active where
+a step starts, where a lane regenerates and in each shading branch, and from
+those branch counts the fp32, integer and load instructions a ray takes,
+counted from the source per branch (the bound's 560 fp32 a ray beside them).
 """
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import ctypes
 import os
+import re
+import shutil
 import statistics
 import subprocess
-import sys
 
 import torch
 
 import chip_smoke as cs
 
+KINDS = ("bounce", "bounce_ad", "flash")
+GROUPS = {"b1": "bounce", "b2": "bounce_ad", "b3": "bounce_ad", "cluster": "flash"}
+# entry functions whose ptxas and SASS lines are printed, by kind
+ENTRIES = {"bounce": ("fused_render_kernel",),
+           "bounce_ad": ("ad_step_fwd_kernel", "ad_step_bwd_kernel"),
+           "flash": ("flash_tri_clustered_kernel", "flash_sphere_gated_kernel",
+                     "flash_sphere_streamed_kernel")}
 
-def build(path):
-    """(name, kind, CDLL, nvcc log) of the variant in directory `path`."""
+
+def nvcc_build(src, out):
+    """Build `src` into the library `out` with the port's flags: (CDLL, log)."""
     from miniraytracer_tpu_torch.utils import kernels
 
-    kind = "bounce_ad" if os.path.exists(os.path.join(path, "bounce_ad.cu")) else "flash"
-    out = os.path.join(path, f"lib{kind}.so")
-    proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", out,
-                           os.path.join(path, f"{kind}.cu")], capture_output=True, text=True)
-    cs.check(proc.returncode == 0, f"{path} did not build:\n{proc.stderr[-3000:]}")
+    proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", out, src],
+                          capture_output=True, text=True)
+    cs.check(proc.returncode == 0, f"{src} did not build:\n{proc.stderr[-3000:]}")
     lib = ctypes.CDLL(out)
-    lib.mrt_error_string.argtypes = [ctypes.c_int]
-    lib.mrt_error_string.restype = ctypes.c_char_p
-    return os.path.basename(os.path.normpath(path)), kind, lib, proc.stdout + proc.stderr
+    if hasattr(lib, "mrt_error_string"):
+        lib.mrt_error_string.argtypes = [ctypes.c_int]
+        lib.mrt_error_string.restype = ctypes.c_char_p
+    return lib, proc.stdout + proc.stderr
+
+
+def build(path, kind):
+    """(variant name, kind, CDLL, nvcc log, library path) of csrc/<kind>.cu
+    in the variant directory `path`."""
+    out = os.path.join(path, f"lib{kind}.so")
+    lib, log = nvcc_build(os.path.join(path, f"{kind}.cu"), out)
+    return os.path.basename(os.path.normpath(path)), kind, lib, log, out
+
+
+# Lane counters: (anchor line, counter slot) pairs. `lane_counting_copy` puts
+# MRT_COUNT(slot) after each anchor it finds in a variant's physics.cuh and
+# bounce_ad.cu (slot 2 and 3 under their condition); every anchor is a line
+# both the parent's and the new designs have.
+COUNT_SLOTS = ("step", "regenerate", "miss", "light hit", "metal", "dielectric", "diffuse",
+               "light sample", "perlin")
+COUNT_ANCHORS = (
+    ("  ++rays;\n", "MRT_COUNT(0);"), ("  rays = rays + 1.0f;\n", "MRT_COUNT(0);"),
+    ("  int samp = P.sample_lo + s.count;\n", "MRT_COUNT(1);"),
+    ("    int samp = sampbase + s.count;\n", "MRT_COUNT(1);"),
+    ("  out.img_idx = -1;\n", "if (!out.hit) MRT_COUNT(2);"),
+    ("  out.is_light = mtype == (float)MAT_DIFFUSE_LIGHT;\n", "if (out.is_light) MRT_COUNT(3);"),
+    ("  if (is_metal) {\n", "MRT_COUNT(4);"), ("  if (is_diel) {\n", "MRT_COUNT(5);"),
+    ("  const bool is_iso = mtype == (float)MAT_ISOTROPIC;\n", "MRT_COUNT(6);"),
+    ("    if (u_mix < 0.5f) {\n", "MRT_COUNT(7);"),
+    ("  if (P.perlin && ttype == (float)TEX_PERLIN) {\n", "MRT_COUNT(8);"))
+COUNT_CODE = """
+__device__ unsigned long long mrt_counts[2 * 16];
+// warps (even slots) and their active lanes (odd slots) that reach `slot`
+__device__ __forceinline__ void mrt_count(int slot) {
+  const unsigned mask = __activemask();
+  if ((int)(threadIdx.x % 32) == __ffs(mask) - 1) {
+    atomicAdd(&mrt_counts[2 * slot], 1ull);
+    atomicAdd(&mrt_counts[2 * slot + 1], (unsigned long long)__popc(mask));
+  }
+}
+#define MRT_COUNT(slot) mrt_count(slot)
+"""
+COUNT_EXPORT = """
+extern "C" void mrt_read_counts(unsigned long long* out) {
+  cudaMemcpyFromSymbol(out, mrt_counts, sizeof(mrt_counts));
+  static const unsigned long long zero[2 * 16] = {};
+  cudaMemcpyToSymbol(mrt_counts, zero, sizeof(zero));
+}
+"""
+
+
+def lane_counting_copy(path):
+    """A copy of the variant directory `path` (in `path`/_count) whose B1 and
+    B2 count their active lanes at COUNT_ANCHORS; the directory."""
+    dst = os.path.join(path, "_count")
+    shutil.rmtree(dst, ignore_errors=True)
+    os.makedirs(dst)
+    for name in os.listdir(path):
+        if name.endswith((".cu", ".cuh", ".h")):
+            shutil.copy(os.path.join(path, name), dst)
+    for name in ("physics.cuh", "bounce_ad.cu"):
+        f = os.path.join(dst, name)
+        src = open(f).read()
+        for anchor, add in COUNT_ANCHORS:
+            src = src.replace(anchor, anchor + add + "\n")
+        if name == "physics.cuh":
+            src = src.replace("namespace {\n", "namespace {\n" + COUNT_CODE, 1)
+            src = src.replace("}  // namespace\n", "}  // namespace\n" + COUNT_EXPORT, 1)
+        open(f, "w").write(src)
+    return dst
+
+
+def sass_counts(lib_path, entry):
+    """{kernel instance: {class: count}} of the SASS of `entry` in a library:
+    local loads and stores, shared, global and generic loads, calls."""
+    cuobjdump = os.path.join(os.path.dirname(
+        __import__("miniraytracer_tpu_torch.utils.kernels", fromlist=["_nvcc"])._nvcc()),
+        "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True).stdout
+    res, cur = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if entry in m.group(1) else None
+            if cur:
+                res[cur] = dict.fromkeys(("LDL", "STL", "LDS", "LDG", "LD", "CALL"), 0)
+            continue
+        if cur:
+            m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)[.\s]", line)
+            if m and m.group(1) in res[cur]:
+                res[cur][m.group(1)] += 1
+    return res
 
 
 def launched_with(kind, lib, fn):
@@ -83,6 +199,135 @@ def in_turns(what, kind, libs, fn, reps, rounds=3, per=1):
         m = statistics.median(runs)
         print(f"    {name:10s} {m:.4f} ms ({m / base:.3f} of {names[0]}); runs "
               f"{[round(x, 4) for x in runs]}")
+
+
+def time_b1(mrt, libs, dev):
+    from miniraytracer_tpu_torch.ops import bounce
+
+    scene = mrt.scenes.cornell_box(1.0).to(dev)
+    meta, tables = bounce.pack_scene(scene)
+    pix = torch.arange(500 * 500, dtype=torch.int32, device=dev)
+    first = next(iter(libs))
+    for spp_sq, reps in ((8, 3), (2, 5)):
+        kw = dict(width=500, height=500, max_bounces=32, spp_sq=spp_sq)
+        frame = lambda: bounce._launch_kernel(meta, tables, pix, 0, spp_sq * spp_sq, 1000.0, **kw)
+        ref = launched_with("bounce", libs[first], frame)
+        for name, lib in libs.items():
+            out = launched_with("bounce", lib, frame)
+            cs.check(all(torch.equal(a, b) for a, b in zip(out, ref)),
+                     f"B1 {name} differs from {first} at {spp_sq ** 2} spp")
+        print(f"  B1 at 500x500x{spp_sq ** 2}x32: every variant equals {first} on every pixel "
+              f"(accum, count, rays); {int(ref[2].sum(dtype=torch.int64))} rays")
+        in_turns(f"B1, the Cornell frame at 500x500x{spp_sq ** 2}x32 ({reps} a timing)", "bounce",
+                 libs, frame, reps)
+
+
+def time_b2(mrt, libs, dev):
+    from miniraytracer_tpu_torch.ops import bounce, bounce_ad, hybrid
+
+    A = bounce_ad
+    first = next(iter(libs))
+    scene = mrt.scenes.cornell_box(1.0).to(dev)
+    meta, cfg, outer, tables, pix, sb, state, residual = launched_with(
+        "bounce_ad", libs[first],
+        lambda: cs.launch_states(mrt, bounce, A, scene, 500, 500, 128, 32, False))
+    res_f, res_i, res_k = residual
+    n = 500 * 500
+    t = outer // 4
+    zeros = torch.zeros((3, n), device=dev)
+    f_in = torch.cat([zeros, res_f[t], zeros[:2]])
+    one = lambda: A.ad_step_fwd(meta, cfg, tables, t, f_in, res_i[t], res_k[t], pix, sb)
+    scan = lambda keep: A.scan_forward(meta, cfg, outer, tables, *state, pix, sb, keep=keep)
+    ref = launched_with("bounce_ad", libs[first], one)
+    end = launched_with("bounce_ad", libs[first], lambda: scan(False))[0]
+    for name, lib in libs.items():
+        out = launched_with("bounce_ad", lib, one)
+        cs.check(all(torch.equal(a, b) for a, b in zip(out, ref)),
+                 f"B2 {name} differs from {first} at launch {t}")
+        if name != first:
+            last, res = launched_with("bounce_ad", lib, lambda: scan(True))
+            cs.check(all(torch.equal(a, b) for a, b in zip(last + res, end + residual)),
+                     f"B2 {name} differs from {first} over the scan")
+            del last, res
+    print(f"  B2: every variant equals {first} on every row of launch {t} and on every "
+          f"launch's state over the Cornell scan ({outer} launches)")
+    in_turns(f"B2 at launch {t} of the Cornell scan (10 a timing)", "bounce_ad", libs, one, 10)
+    del residual, res_f, res_i, res_k
+    torch.cuda.empty_cache()
+    in_turns(f"B2 over the whole Cornell scan, a launch ({outer} launches)", "bounce_ad", libs,
+             lambda: scan(False), 1, per=outer)
+    print("  the host's time to enqueue the scan, a launch (best of 3):")
+    for name, lib in libs.items():
+        host = min(launched_with("bounce_ad", lib, lambda: cs.cuda_and_host_ms(
+            lambda: scan(False)))[1] for _ in range(3)) / outer
+        print(f"    {name:10s} {host:.4f} ms")
+    for mode, name in (("ext", "triangles"), ("ext_mat", "random_spheres"), ("image", "earth")):
+        sc = cs.ext_scene(mrt, name).to(dev)
+        meta, cfg, tables, images, pix, sb, _, states = cs.ext_states(
+            A, hybrid, sc, 500, 8, 32, (20,), False)
+        rf, ri, rk, ext = states[20]
+        f_in = torch.cat([torch.zeros((3, n), device=dev), rf, torch.zeros((2, n), device=dev)])
+        one = lambda: A.ad_step_fwd(meta, cfg, tables, 20, f_in, ri, rk, pix, sb, ext, images)
+        ref = launched_with("bounce_ad", libs[first], one)
+        for vname, lib in libs.items():
+            out = launched_with("bounce_ad", lib, one)
+            cs.check(all(torch.equal(a, b) for a, b in zip(out, ref)),
+                     f"B2[{mode}] {vname} differs from {first}")
+        in_turns(f"B2[{mode}] on {name} at launch 20, every row equal (10 a timing)",
+                 "bounce_ad", libs, one, 10)
+        del states
+        torch.cuda.empty_cache()
+
+
+# fp32 instructions, integer instructions and table words loaded, counted from
+# physics.cuh per event (--fmad=false: a multiply and an add are two; a hash is
+# ~8 integer instructions, a uniform one hash): the sweep per primitive, then
+# per step, per regeneration and per shading branch. The same counts as
+# chip_smoke.FP32_OPS_PER_RAY_FWD's 560 for the Cornell box.
+SWEEP_COST = {"S": (27, 3, 10), "R": (37, 3, 17), "Tc": (45, 3, 11), "Bx": (55, 4, 13),
+              "V": (60, 12, 16)}
+EVENT_COST = {"step": (46, 16, 0), "regenerate": (60, 40, 21), "miss": (12, 0, 0),
+              "light hit": (16, 4, 11), "metal": (60, 30, 11), "dielectric": (70, 12, 11),
+              "diffuse": (185, 60, 28), "light sample": (15, 4, 17), "perlin": (600, 120, 210)}
+
+
+def lane_counts(mrt, built, dev):
+    """Active-lane shares and events a ray of B1 (the Cornell frame at
+    500x500x64x32) and B2 (the whole Cornell scan) of each variant, from its
+    lane-counting build."""
+    from miniraytracer_tpu_torch.ops import bounce, bounce_ad
+
+    scene = mrt.scenes.cornell_box(1.0).to(dev)
+    meta, tables = bounce.pack_scene(scene)
+    pix = torch.arange(500 * 500, dtype=torch.int32, device=dev)
+    sweep = [sum(meta[k] * c[i] for k, c in SWEEP_COST.items()) for i in range(3)]
+    _, claim, k_sub, outer = bounce_ad.scan_plan(128, 32)
+    cfg = bounce_ad.StepConfig(500, 500, 8, 32, 128, claim, k_sub)
+    sb = torch.zeros_like(pix)
+    state = bounce_ad.initial_state(scene, pix, sb, 128, width=500, height=500, sq_off=8)
+    runs = {"bounce": ("B1, Cornell 500x500x64x32", lambda: bounce._launch_kernel(
+                meta, tables, pix, 0, 64, 1000.0, width=500, height=500, max_bounces=32,
+                spp_sq=8)),
+            "bounce_ad": ("B2, the Cornell scan", lambda: bounce_ad.scan_forward(
+                meta, cfg, outer, tables, *state, pix, sb, keep=False))}
+    for name, kind, lib in built:
+        what, fn = runs[kind]
+        lib.mrt_read_counts.argtypes = [ctypes.c_void_p]
+        raw = (ctypes.c_ulonglong * 32)()
+        launched_with(kind, lib, fn)
+        torch.cuda.synchronize()
+        lib.mrt_read_counts(raw)
+        warps, lanes = raw[0::2], raw[1::2]
+        rays = max(lanes[0], 1)
+        shares = ", ".join(f"{slot} {lanes[i] / max(32 * warps[i], 1):.3f} ({lanes[i] / rays:.3f} "
+                           f"a ray)" for i, slot in enumerate(COUNT_SLOTS) if warps[i])
+        per_ray = [sweep[c] + sum(EVENT_COST[slot][c] * lanes[i] / rays
+                                  for i, slot in enumerate(COUNT_SLOTS)) for c in range(3)]
+        print(f"  {name} {what}: {lanes[0]} rays; active lanes of a warp where (share, events "
+              f"a ray): {shares}")
+        print(f"    a ray, counted from the source per event: fp32 {per_ray[0]:.0f}, integer "
+              f"{per_ray[1]:.0f}, table words loaded {per_ray[2]:.0f} (the bound counts "
+              f"{cs.FP32_OPS_PER_RAY_FWD} fp32)")
 
 
 def time_b3(mrt, libs, dev):
@@ -227,31 +472,146 @@ def time_cluster_loop(mrt, libs, dev):
         torch.cuda.empty_cache()
 
 
+TRIG_SRC = """#include "physics.cuh"
+__global__ void trig_kernel(unsigned long long* bad) {
+  const uint64_t stride = (uint64_t)gridDim.x * blockDim.x;
+  for (uint64_t u = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x; u < (1ull << 32);
+       u += stride) {
+    const float x = __uint_as_float((uint32_t)u);
+    const float v[4] = {sinf(x), exact_sinf(x), cosf(x), exact_cosf(x)};
+    for (int f = 0; f < 2; ++f) {
+      if (__float_as_uint(v[2 * f]) == __float_as_uint(v[2 * f + 1])) continue;
+      const bool nans = v[2 * f] != v[2 * f] && v[2 * f + 1] != v[2 * f + 1];
+      atomicAdd(&bad[2 * f + (nans ? 1 : 0)], 1ull);
+    }
+  }
+}
+extern "C" int mrt_trig_check(unsigned long long* out) {
+  unsigned long long* bad;
+  cudaMalloc(&bad, 4 * sizeof(unsigned long long));
+  cudaMemset(bad, 0, 4 * sizeof(unsigned long long));
+  trig_kernel<<<132 * 16, 256>>>(bad);
+  cudaMemcpy(out, bad, 4 * sizeof(unsigned long long), cudaMemcpyDeviceToHost);
+  cudaFree(bad);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def trig_check_build(path):
+    """The library of TRIG_SRC built against the physics.cuh of `path`."""
+    src = os.path.join(path, "trig_check.cu")
+    with open(src, "w") as f:
+        f.write(TRIG_SRC)
+    return nvcc_build(src, os.path.join(path, "libtrig_check.so"))[0]
+
+
+def trig_check(lib):
+    """physics.cuh's exact_sinf/exact_cosf against CUDA's sinf/cosf on all
+    2^32 float inputs, bit for bit."""
+    out = (ctypes.c_ulonglong * 4)()
+    rc = lib.mrt_trig_check(out)
+    cs.check(rc == 0, f"the trig check did not run: CUDA error {rc}")
+    print(f"  exact_sinf / exact_cosf against sinf / cosf on all 2^32 inputs: {out[0]} / {out[2]} "
+          f"differ in their bits ({out[1]} / {out[3]} more where both are NaN)")
+    cs.check(out[0] == 0 and out[2] == 0, "exact_sinf or exact_cosf differs from the library's")
+
+
+PROBE = {
+    "bounce": ("fused_render_kernel", "fused_render_grid"),
+    "bounce_ad": ("ad_step_fwd_kernel<false, false, false>", "ad_step_fwd_grid"),
+}
+PROBE_SRC = """#include "{kind}.cu"
+extern "C" void mrt_{fn}(const int* ip, int* out) {{
+  int dev = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], {kernel}, 128, 0);
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&out[1], cudaDevAttrMultiProcessorCount, dev);
+  out[2] = (ip[0] + 127) / 128;
+  out[3] = 128;
+  out[4] = 0;
+}}
+"""
+
+
+def grid_of(path, kind, lib, ip):
+    """(blocks an SM holds, SMs, blocks, threads, dynamic shared bytes) of a
+    launch of B1 or B2 with the parameter block `ip`: the variant's own
+    `mrt_*_grid`, or for a design without one (one thread a lane) a probe
+    built beside it."""
+    kernel, fn = PROBE[kind]
+    if not hasattr(lib, f"mrt_{fn}"):
+        src = os.path.join(path, f"probe_{kind}.cu")
+        with open(src, "w") as f:
+            f.write(PROBE_SRC.format(kind=kind, fn=fn, kernel=kernel))
+        lib = nvcc_build(src, os.path.join(path, f"libprobe_{kind}.so"))[0]
+    out = (ctypes.c_int * 5)()
+    getattr(lib, f"mrt_{fn}")((ctypes.c_int * len(ip))(*ip), out)
+    return tuple(out)
+
+
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("dirs", nargs="+")
+    parser.add_argument("--only", default=",".join(GROUPS))
+    parser.add_argument("--count", action="store_true")
+    parser.add_argument("--trig", action="store_true")
+    args = parser.parse_args()
     cs.check(torch.cuda.is_available(), "no CUDA device: this script needs a GPU")
-    cs.check(len(sys.argv) > 1, "name the variant directories")
     import miniraytracer_tpu_torch as mrt
+    from miniraytracer_tpu_torch.ops import bounce, bounce_ad
     from miniraytracer_tpu_torch.utils import kernels
 
+    groups = args.only.split(",")
+    kinds = [k for k in KINDS if any(GROUPS[g] == k for g in groups)]
+    jobs = [(d, k) for d in args.dirs for k in kinds if os.path.exists(os.path.join(d, f"{k}.cu"))]
     card = cs.card()
     print(card)
-    with concurrent.futures.ThreadPoolExecutor(len(sys.argv)) as pool:
-        built = list(pool.map(build, sys.argv[1:]))
+    counting = []
+    with concurrent.futures.ThreadPoolExecutor(2 * len(jobs) + 4) as pool:
+        built = list(pool.map(lambda job: build(*job), jobs))
+        if args.count:
+            copies = {d: lane_counting_copy(d) for d in args.dirs}
+            counting = list(pool.map(
+                lambda job: (os.path.basename(os.path.normpath(job[0])), job[1],
+                             build(copies[job[0]], job[1])[2]),
+                [job for job in jobs if job[1] in ("bounce", "bounce_ad")]))
+        trig = pool.submit(trig_check_build, args.dirs[-1]) if args.trig else None
         for name in ("bounce", "bounce_ad", "flash", "hybrid"):
             kernels.build(name)
-    libs = {"bounce_ad": {}, "flash": {}}
-    for name, kind, lib, log in built:
+    meta, _ = bounce.pack_scene(mrt.scenes.cornell_box(1.0))
+    _, claim, k_sub, _ = bounce_ad.scan_plan(128, 32)
+    ips = {"bounce": bounce.kernel_params(meta, 250000, 0, 64, width=500, height=500,
+                                          max_bounces=32, spp_sq=8),
+           "bounce_ad": bounce_ad.kernel_params(
+               meta, bounce_ad.StepConfig(500, 500, 8, 32, 128, claim, k_sub), 250000, 50)}
+    libs = {k: {} for k in KINDS}
+    for name, kind, lib, log, path in built:
         libs[kind][name] = lib
-        entries = (("ad_step_bwd_kernel",) if kind == "bounce_ad" else
-                   ("flash_tri_clustered_kernel", "flash_sphere_gated_kernel",
-                    "flash_sphere_streamed_kernel"))
-        for entry in entries:
+        for entry in ENTRIES[kind]:
             for line in cs.ptxas_lines(log, entry):
                 print(f"  {name}: {line.strip()}")
+            for fn, c in sass_counts(path, entry).items():
+                print(f"  {name}: SASS of {fn[:60]}: {c}")
+        if kind in PROBE:
+            per_sm, sms, blocks, threads, smem = grid_of(os.path.dirname(path), kind, lib,
+                                                         ips[kind])
+            print(f"  {name}: {ENTRIES[kind][0]} on the Cornell box at 500x500: {per_sm} blocks "
+                  f"of {threads} an SM (occupancy API) x {sms} SMs; launches {blocks} blocks, "
+                  f"{smem} B of dynamic shared memory ({blocks / max(per_sm * sms, 1):.2f} "
+                  f"waves)")
     dev = torch.device("cuda")
-    if libs["bounce_ad"]:
+    if trig is not None:
+        trig_check(trig.result())
+    if counting:
+        lane_counts(mrt, counting, dev)
+    if "b1" in groups and libs["bounce"]:
+        time_b1(mrt, libs["bounce"], dev)
+    if "b2" in groups and libs["bounce_ad"]:
+        time_b2(mrt, libs["bounce_ad"], dev)
+    if "b3" in groups and libs["bounce_ad"]:
         time_b3(mrt, libs["bounce_ad"], dev)
-    if libs["flash"]:
+    if "cluster" in groups and libs["flash"]:
         time_cluster_loop(mrt, libs["flash"], dev)
     print(card)
 
