@@ -62,11 +62,14 @@ the ported paths on the card:
 With a copy of the parent commit's `miniraytracer_tpu_torch/csrc/` in
 `miniraytracer_tpu_torch/_build/parent_csrc/` (git-ignored), the redesigned
 kernels are also held against the parent's builds in the same run: B1 bit
-for bit on the Cornell 500x500x64x32 frame (phase 5), B2 bit for bit at
-launch 50 and over the whole Cornell scan and at every launch of phases 6
-and 28, B3's d_f bit for bit (phase 7), B4 and B5 bit for bit (phases 9 and
-14), each timed in turns; and the cluster loop of B9-B13 is timed against
-the parent's (phases 13, 23, 25). Without it those comparisons are skipped.
+for bit on the Cornell and the perlin_spheres 500x500x64x32 frames (phase
+5), B2 bit for bit at launch 50 and over the whole Cornell scan and at every
+launch of phases 6 and 28, B3's d_f bit for bit (phase 7), B4 bit for bit
+(phase 9), B5 on earth's and book2_final's queue steps (phase 14) and B6 on
+both point sets (phase 18) bit for bit, each timed in turns (B4-B6 by
+`queued_ms`: their wrappers take longer than they do); and the cluster loop
+of B9-B13 is timed against the parent's (phases 13, 23, 25). Without it
+those comparisons are skipped.
 
 Each main path is driven with the kernels' launch counts set to 0 just before
 and read just after. Every phase raises on failure, so the exit code is
@@ -168,16 +171,36 @@ def cuda_and_host_ms(fn):
     return start.elapsed_time(end), host
 
 
+def queued_ms(fn, reps=20):
+    """Device milliseconds of each of `reps` calls of fn(), between CUDA events
+    around each call, all queued behind a spin kernel first: the card then
+    runs them back to back whatever the host's pace, so a short kernel's
+    time is not its wrapper's (B4-B6 take 0.01-0.04 ms on the card and
+    0.05-0.15 ms of Python to enqueue). fn() must not synchronise."""
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of one thread spinning
+    t0 = time.perf_counter()
+    for start, end in events:
+        start.record()
+        fn()
+        end.record()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    check(host < 0.05, f"enqueueing {reps} calls took {1e3 * host:.1f} ms: the spin ran out")
+    return [start.elapsed_time(end) for start, end in events]
+
+
 # The parent commit's kernels, for holding the redesigned ones against them
-# on the same card in the same run (B1 and B2 bit for bit, B3-B5 and the
-# cluster loop of B9-B13 too, each also timed in turns): a copy of the
+# on the same card in the same run (B1-B6 bit for bit, B3's d_f, and the
+# cluster loop of B9-B13, each also timed in turns): a copy of the
 # parent's `miniraytracer_tpu_torch/csrc/` put into PARENT_CSRC, a git-ignored
 # directory, for that run only. Without it (a checkout of the repository) the
 # comparisons are skipped and say so. The libraries have the same C
-# interface, so the wrappers launch either (`launching`); B1's and B2's take
-# one argument more, the work counter, last, which the parent's ignore.
+# interface, so the wrappers launch either (`launching`).
 PARENT_CSRC = os.path.join(HERE, "miniraytracer_tpu_torch", "_build", "parent_csrc")
-PARENT_KERNELS = ("bounce", "bounce_ad", "flash", "hybrid")
+PARENT_KERNELS = ("bounce", "bounce_ad", "flash", "hybrid", "noise")
 parent_libs: dict = {}
 
 
@@ -211,10 +234,12 @@ def launching(kernels, name, lib):
         kernels._loaded[name] = saved
 
 
-def against_parent(kernels, name, fn, reps, rounds=1):
+def against_parent(kernels, name, fn, reps, rounds=1, queued=False):
     """fn() timed with this checkout's kernels and with the parent's, in turns
     (parent, new, new, parent; `rounds` times), `reps` calls a timing: (new ms
-    list, parent ms list) a call, or None without the parent's build."""
+    list, parent ms list) a call, or None without the parent's build. With
+    `queued`, a turn is the median of `queued_ms`: a short kernel's device
+    time, not its wrapper's."""
     if parent_libs.get(name) is None:
         return None
     libs = {"parent": parent_libs[name], "new": kernels.load(name)}
@@ -225,7 +250,8 @@ def against_parent(kernels, name, fn, reps, rounds=1):
     for _ in range(rounds):
         for key in ("parent", "new", "new", "parent"):
             with launching(kernels, name, libs[key]):
-                ms[key].append(cuda_ms(lambda: [fn() for _ in range(reps)], 1)[0] / reps)
+                ms[key].append(statistics.median(queued_ms(fn, reps)) if queued else
+                               cuda_ms(lambda: [fn() for _ in range(reps)], 1)[0] / reps)
     return ms["new"], ms["parent"]
 
 
@@ -288,6 +314,20 @@ def ptxas_lines(log, entry):
         elif current and ("registers" in line or "stack frame" in line):
             out.append("      " + line.strip())
     return out
+
+
+def print_ptxas(kernels, name, entry):
+    """ptxas's lines of `entry` in this checkout's build of csrc/<name>.cu and,
+    where it was built, in the parent's."""
+    logs = [("", kernels.build_log(name))]
+    parent_log = os.path.join(PARENT_CSRC, f"lib{name}.so.log")
+    if parent_libs.get(name) is not None and os.path.exists(parent_log):
+        with open(parent_log) as f:
+            logs.append(("the parent's ", f.read()))
+    for who, log in logs:
+        print(f"  {who}{entry}, ptxas -v:")
+        for line in ptxas_lines(log, entry):
+            print("   ", line)
 
 
 def compare(name, kernel_out, plain_out):
@@ -429,6 +469,17 @@ def main() -> None:
                                  against_parent(kernels, "bounce", frame64, 1, rounds=2),
                                  card_line)
 
+    # B1 on perlin_spheres: the turbulence it shares with B6 (physics.cuh)
+    # over the Perlin tables it stages
+    perlin = mrt.scenes.perlin_spheres(1.0).to(dev)
+    meta_p, tables_p = bounce.pack_scene(perlin)
+    frame_p = lambda: bounce._launch_kernel(meta_p, tables_p, pix, 0, 64, 1000.0, **kw64)
+    parent_equal(kernels, "bounce", frame_p,
+                 "B1, the perlin_spheres frame 500x500x64x32 (accum, count, rays of every pixel)")
+    b1p_vs = print_against_parent("B1 alone, the perlin_spheres frame 500x500x64x32",
+                                  against_parent(kernels, "bounce", frame_p, 1, rounds=1),
+                                  card_line)
+
     rays_b1 = int(k[2].sum(dtype=torch.int64))
     n_px = 500 * 500
     b1_bound, b1_by = bound(4 * n_px * (1 + 5) + 4 * sum(t.numel() for t in bounce.pack_scene(scene)[1]),
@@ -450,6 +501,8 @@ def main() -> None:
         "library_ms": None,
         "frame_ms": b1_vs["new_ms"] if b1_vs else None,
         "parent_frame_ms": b1_vs["parent_ms"] if b1_vs else None,
+        "perlin_frame_ms": b1p_vs["new_ms"] if b1p_vs else None,
+        "parent_perlin_frame_ms": b1p_vs["parent_ms"] if b1p_vs else None,
     }]
 
     print(f"phases 1-5 took {time.perf_counter() - t_start:.1f} s")
@@ -1125,8 +1178,9 @@ def hybrid_phases(mrt, bounce, flash, hybrid, dev, card_line, refs):
           f"bound {b4_bound:.4f} ms by {b4_by} on {card_line}")
     b4_one = lambda: hybrid.hybrid_step(cfg, *state, pix, ext)
     parent_equal(kernels, "hybrid", b4_one, "B4 random_spheres step 2, every row")
-    b4_vs = print_against_parent("B4 random_spheres step 2",
-                                 against_parent(kernels, "hybrid", b4_one, 10, rounds=2), card_line)
+    b4_vs = print_against_parent(
+        "B4 random_spheres step 2, device ms a launch (queued, 20 a turn)",
+        against_parent(kernels, "hybrid", b4_one, 20, rounds=2, queued=True), card_line)
     del snaps_rs, snaps, sweeps, b4, state, ext, args
     torch.cuda.empty_cache()
 
@@ -1432,7 +1486,8 @@ def queue_phases(mrt, bounce, flash, hybrid, dev, card_line, refs, hybrid_row):
 
     # 14. B5 vs plain, lane by lane, in its four modes
     print("phase 14: shade step kernel vs plain PyTorch on lanes of queue steps at 500x500")
-    shade_err, shade_share, b5 = 0.0, 1.0, None
+    print_ptxas(kernels, "hybrid", "shade_step_kernel")
+    shade_err, shade_share, b5 = 0.0, 1.0, {}
     for name in scenes:
         calls = snaps[name]
         cfg = calls[0][0]
@@ -1444,21 +1499,36 @@ def queue_phases(mrt, bounce, flash, hybrid, dev, card_line, refs, hybrid_row):
             share, err = compare_shade(f"B5 {name} ({mode}) step {t}", hybrid,
                                        hybrid.shade_step(*args), hybrid.shade_step_plain(*args))
             shade_err, shade_share = max(shade_err, err), min(shade_share, share)
-        if name == "earth":
-            b5 = calls[2]
-    b5_k, b5_p = in_turns(lambda: hybrid.shade_step(*b5), lambda: hybrid.shade_step_plain(*b5))
-    cfg, fstate, _, _, ext = b5
-    n, live = fstate.shape[1], int((fstate[hybrid.SH_ALIVE] > 0).sum())
-    # words a lane: in 15 + inside + key + candidate rows, out 13 + inside
-    b5_bound, b5_by = bound(
-        4 * (n * (17 + ext.shape[0] + 14) + sum(t.numel() for t in cfg.tables)),
-        live * step_ops_per_ray(cfg.meta))
-    print(f"  B5 earth step 2 ({n} lanes, {live} alive): kernel {b5_k} ms, plain {b5_p} ms, "
-          f"bound {b5_bound:.4f} ms by {b5_by} on {card_line}")
-    b5_one = lambda: hybrid.shade_step(*b5)
-    parent_equal(kernels, "hybrid", b5_one, "B5 earth step 2, every row")
-    b5_vs = print_against_parent("B5 earth step 2",
-                                 against_parent(kernels, "hybrid", b5_one, 10, rounds=2), card_line)
+            if name in ("earth", "book2_final"):
+                parent_equal(kernels, "hybrid", lambda: hybrid.shade_step(*args),
+                             f"B5 {name} step {t}, every row", say=t == 2)
+        if name in ("earth", "book2_final"):
+            b5[name] = calls[2]
+    grid = (ctypes.c_int * 5)()
+    b5_rows = {}
+    for name, args in b5.items():
+        cfg, fstate, _, _, ext = args
+        n, live = fstate.shape[1], int((fstate[hybrid.SH_ALIVE] > 0).sum())
+        ip = bounce.kernel_params(cfg.meta, n, 0, 0, width=1, height=1, max_bounces=0, spp_sq=1)
+        ip += [int(bool(cfg.meta.get("ext_mat"))), int(cfg.meta["image"]), *cfg.images.shape]
+        kernels.load("hybrid").mrt_shade_step_grid((ctypes.c_int * len(ip))(*ip), grid)
+        k_ms, p_ms = in_turns(lambda: hybrid.shade_step(*args),
+                              lambda: hybrid.shade_step_plain(*args))
+        # words a lane: in 15 + inside + key + candidate rows, out 13 + inside
+        b_ms, b_by = bound(4 * (n * (17 + ext.shape[0] + 14) + sum(t.numel() for t in cfg.tables)),
+                           live * step_ops_per_ray(cfg.meta))
+        dev_ms = statistics.median(queued_ms(lambda: hybrid.shade_step(*args)))
+        print(f"  B5 {name} step 2 ({n} lanes, {live} alive): grid {grid[2]} blocks of {grid[3]} "
+              f"({grid[0]} an SM x {grid[1]} SMs); device {dev_ms:.4f} ms a launch (queued), "
+              f"with the wrapper {k_ms} ms, plain {p_ms} ms, bound {b_ms:.4f} ms by {b_by} on "
+              f"{card_line}")
+        vs = print_against_parent(f"B5 {name} step 2, device ms a launch (queued, 20 a turn)",
+                                  against_parent(kernels, "hybrid",
+                                                 lambda: hybrid.shade_step(*args), 20, rounds=2,
+                                                 queued=True), card_line)
+        b5_rows[name] = dict(ms=dev_ms, wrapper_ms=statistics.mean(k_ms),
+                             plain_ms=statistics.mean(p_ms), bound_ms=b_ms, bound_by=b_by,
+                             vs_parent=vs)
     del snaps, b5
     torch.cuda.empty_cache()
 
@@ -1531,6 +1601,8 @@ def queue_phases(mrt, bounce, flash, hybrid, dev, card_line, refs, hybrid_row):
               f"(claiming, merging, camera rays, the box sweep, candidate assembly) {rest:.1f} ms")
         for kname, (kms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]:
             print(f"    {kms:8.2f} ms  {100 * kms / busy:5.1f}%  x{count:<6d} {kname[:90]}")
+        b5_rows.get(label, {})["profile_ms_a_launch"] = (
+            named["shade_step_kernel"][0] / max(named["shade_step_kernel"][1], 1))
         return counts, stats, med
 
     c_earth, st_earth, ms_earth = main_path("earth", mrt.scenes.earth(1.0), 64, 64)
@@ -1549,7 +1621,7 @@ def queue_phases(mrt, bounce, flash, hybrid, dev, card_line, refs, hybrid_row):
     # random_spheres through the queue against the hybrid loop of phase 12
     print("phase 17: lane counts and queue against hybrid loop (one warm frame each, 500x500, "
           f"64 spp, 32 bounces) on {card_line}")
-    for lanes in (65_536, 131_072, 250_000):
+    for lanes in (65_536, 250_000):  # phase 16 read earth's 131,072
         one = lambda: mrt.render_workqueue(scenes["earth"], w, h, 64, max_bounces=32,
                                            n_lanes=lanes)
         _, st = one()
@@ -1573,10 +1645,13 @@ def queue_phases(mrt, bounce, flash, hybrid, dev, card_line, refs, hybrid_row):
         {"name": "shade_step", "source": src + "hybrid.cu",
          "replaces": "miniraytracer_tpu/ops/hybrid.py:611", "launches": c_earth["b5"],
          "launches_book2_final": c_book2["b5"], "lanes_agreeing": shade_share,
-         "ms": statistics.mean(b5_k), "plain_ms": statistics.mean(b5_p), "bound_ms": b5_bound,
-         "bound_by": b5_by, "frame_ms_earth": ms_earth, "frame_steps_earth": st_earth["steps"],
+         "ms": b5_rows["earth"]["ms"], "plain_ms": b5_rows["earth"]["plain_ms"],
+         "bound_ms": b5_rows["earth"]["bound_ms"], "bound_by": b5_rows["earth"]["bound_by"],
+         "parent_ms": (b5_rows["earth"]["vs_parent"] or {}).get("parent_ms"),
+         "book2_final": b5_rows["book2_final"], "earth": b5_rows["earth"],
+         "frame_ms_earth": ms_earth, "frame_steps_earth": st_earth["steps"],
          "frame_ms_book2_final": ms_book2, "frame_steps_book2_final": st_book2["steps"],
-         "max_abs_err": shade_err, "vs_parent": b5_vs, **common},
+         "max_abs_err": shade_err, **common},
         {"name": "flash_sphere_hit_streamed", "source": src + "flash.cu",
          "replaces": "miniraytracer_tpu/ops/flash.py:1175", "launches": c_5000["b12"],
          "frame_ms": ms_5000, "frame_steps": st_5000["steps"],
@@ -1607,22 +1682,32 @@ def turbulence_points(integrator, noise, scene, size, step):
     """The points (scaled hit points of every lane) that the work queue hands
     to B6 at queue step `step` of a size x size render with the default lanes
     (1 sample, the bounce cap at `step`: the steps up to it are those of any
-    longer render). Returns (tables, points)."""
-    calls = []
-    real = noise.flash_turbulence
+    longer render). The shading evaluates every lane's turbulence and selects
+    after (`textures.sample_texture`). Returns (tables, points, the lanes
+    whose material's texture is Perlin)."""
+    from miniraytracer_tpu_torch.models import materials
+    from miniraytracer_tpu_torch.scene import types as T
+
+    calls, perlin = [], []
+    real, real_tex = noise.flash_turbulence, materials.sample_texture
 
     def record(ptab, p):
         calls.append((ptab, p))
         return real(ptab, p)
 
-    noise.flash_turbulence = record
+    def record_tex(scene, tex_id, *args, **kw):
+        perlin.append(int((scene.tex_type[tex_id.long()] == T.TEX_PERLIN).sum()))
+        return real_tex(scene, tex_id, *args, **kw)
+
+    noise.flash_turbulence, materials.sample_texture = record, record_tex
     try:
         integrator.render_workqueue_pixels(
             scene, size * size, integrator.wq_auto_lanes(scene, size * size), 1, 1000.0,
             width=size, height=size, max_bounces=step, spp_sq=1, fused_shade=False)
     finally:
-        noise.flash_turbulence = real
-    return calls[step]
+        noise.flash_turbulence, materials.sample_texture = real, real_tex
+    check(len(calls) == len(perlin), "sample_texture and B6 were not called once a step each")
+    return (*calls[step], perlin[step])
 
 
 def compare_eager_queue(name, integrator, scene, size, sq, bounces, lanes, counters):
@@ -1682,12 +1767,18 @@ def eager_phases(mrt, flash, hybrid, noise, dev, card_line, refs, rows, size=500
     # uniform points whose lattice cells run negative, an odd count of them
     print(f"phase 18: turbulence kernel B6 vs plain PyTorch ({size}x{size} queue step 2, and "
           "uniform points)")
-    ptab, p_step = turbulence_points(integrator, noise, rs2, size, 2)
+    from miniraytracer_tpu_torch.utils import kernels
+
+    print_ptxas(kernels, "noise", "turbulence_kernel")
+    ptab, p_step, n_perlin = turbulence_points(integrator, noise, rs2, size, 2)
+    print(f"  queue step 2: {p_step.x.numel()} points, {n_perlin} of them on a Perlin surface")
     gen = torch.Generator(device=dev).manual_seed(5)
     u = torch.rand((3, 1_000_003), generator=gen, device=dev) * 600.0 - 300.0
     b6_err = 0.0
     for label, p in (("random_spheres_2 queue step 2", p_step),
                      ("uniform points in [-300, 300]^3", V3(u[0], u[1], u[2]))):
+        parent_equal(kernels, "noise", lambda: noise.flash_turbulence(ptab, p),
+                     f"B6 on the {label}")
         k, pl = noise.flash_turbulence(ptab, p), noise.flash_turbulence_plain(ptab, p)
         err = float((k - pl).abs().max())
         tol = 1e-6 * max(1.0, float(pl.abs().max()))
@@ -1700,8 +1791,16 @@ def eager_phases(mrt, flash, hybrid, noise, dev, card_line, refs, rows, size=500
     b6_k, b6_p = in_turns(lambda: noise.flash_turbulence(ptab, p_step),
                           lambda: noise.flash_turbulence_plain(ptab, p_step), kernel_reps=20)
     b6_bound, b6_by = bound(16 * n + 4 * ptab.numel(), n * FP32_OPS_PER_TURB_POINT)
-    print(f"  B6 at {n} points: kernel {b6_k} ms, plain {b6_p} ms, bound {b6_bound:.4f} ms by "
-          f"{b6_by} on {card_line}")
+    b6_one = lambda: noise.flash_turbulence(ptab, p_step)
+    b6_ms = statistics.median(queued_ms(b6_one))
+    grid = (ctypes.c_int * 5)()
+    kernels.load("noise").mrt_turbulence_grid(n, grid)
+    print(f"  B6 at {n} points: grid {grid[2]} blocks of {grid[3]} ({grid[0]} an SM x {grid[1]} "
+          f"SMs); device {b6_ms:.4f} ms a launch (queued), with the wrapper {b6_k} ms, plain "
+          f"{b6_p} ms, bound {b6_bound:.4f} ms by {b6_by} on {card_line}")
+    b6_vs = print_against_parent(f"B6 at {n} points, device ms a launch (queued, 20 a turn)",
+                                 against_parent(kernels, "noise", b6_one, 20, rounds=2,
+                                                queued=True), card_line)
 
     # 19. the queue with its shading in tensor operations, kernels vs plain
     print(f"phase 19: work queue with its shading in tensor operations, kernels vs plain PyTorch, "
@@ -1763,11 +1862,10 @@ def eager_phases(mrt, flash, hybrid, noise, dev, card_line, refs, rows, size=500
           f"launches B6 {b6} B8 {b8}, rays {stats['rays']}, frame mean "
           f"{frame.mean(dim=(0, 1)).tolist()}")
     scene_d = scene.to(dev)
-    ms = cuda_ms(lambda: mrt.render(scene_d, size, size, spp, max_bounces=bounces), 2)
+    ms = cuda_ms(lambda: mrt.render(scene_d, size, size, spp, max_bounces=bounces), 1)
     med = statistics.median(ms)
-    print(f"  forward {stats['rays'] / (med / 1e3) / 1e6:.2f} Mrays/s (median of 2 warm renders, "
-          f"{med:.1f} ms each, {med / stats['steps']:.3f} ms a queue step; runs {ms}) on "
-          f"{card_line}")
+    print(f"  forward {stats['rays'] / (med / 1e3) / 1e6:.2f} Mrays/s (one warm render, "
+          f"{med:.1f} ms, {med / stats['steps']:.3f} ms a queue step) on {card_line}")
     # an 8-spp frame: the profiler keeps every launch of a frame (~1,800 a
     # step) in memory, and reading them back takes longer than the frame
     wall, busy, by_name = device_share(
@@ -1794,8 +1892,10 @@ def eager_phases(mrt, flash, hybrid, noise, dev, card_line, refs, rows, size=500
         "name": "flash_turbulence", "route": "cuda",
         "source": "miniraytracer_tpu_torch/csrc/noise.cu",
         "replaces": "miniraytracer_tpu/ops/noise.py:73", "launches": b6,
-        "max_abs_err": b6_err, "ms": statistics.mean(b6_k), "plain_ms": statistics.mean(b6_p),
-        "bound_ms": b6_bound, "bound_by": b6_by, "library_ms": None, "points": n,
+        "max_abs_err": b6_err, "ms": b6_ms, "wrapper_ms": statistics.mean(b6_k),
+        "plain_ms": statistics.mean(b6_p), "bound_ms": b6_bound, "bound_by": b6_by,
+        "library_ms": None, "points": n, "points_on_perlin": n_perlin,
+        "parent_ms": b6_vs["parent_ms"] if b6_vs else None,
         "frame_ms": med, "frame_steps": stats["steps"], "frame_rays": stats["rays"],
         "profile_spp": profile_spp, "profile_device_busy_ms": busy,
         "profile_b6_device_ms": named["turbulence_kernel"],
@@ -2325,12 +2425,15 @@ def ext_train_phases(mrt, bounce, bounce_ad, flash, hybrid, dev, card_line, size
                   f"{float(moved.max()):.4g} (entry {int(moved.argmax())})")
         else:
             target = torch.full((w * w, 3), 0.25, device=dev)
+            t_warm = time.perf_counter()
             _, loss, grads = step(params0, scene, target, 0, 0.0)  # warm
             check(torch.isfinite(loss).item() and all(torch.isfinite(g).all().item()
                                                       for g in grads),
                   f"{name}: loss or grads not finite")
+            warm_s = time.perf_counter() - t_warm
         one_step = lambda: step(params0, scene, target, 0, 0.0)
-        step_ms = cuda_ms(one_step, 2)
+        # one warm step where a step takes seconds (book2's box sweep)
+        step_ms = cuda_ms(one_step, 1 if name != "random_spheres" and warm_s > 3.0 else 2)
         launched = {k: getattr(mod, attr) - before[k] for k, (attr, mod) in counters.items()}
         modes = {f"{d}[{m}]": c - modes_before.get((d, m), 0)
                  for (d, m), c in A.mode_launches.items() if c - modes_before.get((d, m), 0)}
@@ -2343,7 +2446,8 @@ def ext_train_phases(mrt, bounce, bounce_ad, flash, hybrid, dev, card_line, size
         rays = int(rays)
         done_frac = float(nv.sum()) / (w * w * spp_step)
         med = statistics.median(step_ms)
-        print(f"  {name}: step {med:.1f} ms (median of 2 warm; runs {step_ms}); rays {rays}; "
+        print(f"  {name}: step {med:.1f} ms (median of {len(step_ms)} warm; runs {step_ms}); "
+              f"rays {rays}; "
               f"done_frac {done_frac:.4f}; fwd+bwd {rays / (med / 1e3) / 1e6:.2f} Mrays/s; "
               f"residual {res_bytes / 1e9:.2f} GB; grads finite; on {card_line}")
         print(f"    launches in its steps: "

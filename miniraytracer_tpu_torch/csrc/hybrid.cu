@@ -39,6 +39,12 @@
 
 #include "physics.cuh"
 
+// Threads a block of the shade step (the g++ host emulation runs blocks of
+// one thread).
+#ifndef MRT_SHADE_THREADS
+#define MRT_SHADE_THREADS 128
+#endif
+
 namespace {
 
 // state rows (ops/bounce.py: R_*, I_*)
@@ -143,12 +149,24 @@ hybrid_step_kernel(Tables tb, RenderParams P, Atlas atlas, const float* __restri
 // beta(3) radiance(3), and new_inside (N,) i32. p, new_rd and new_inside are
 // zero where cont is 0; a dead lane keeps its throughput and radiance.
 //
-// Design. One thread per lane, as the hybrid step: `shade_advance` of
-// physics.cuh, so both steps shade with the same code. The image texel of a
-// lane that goes on is fetched and multiplied into the throughput HERE; the
-// TPU kernel emits a texel-index row and its caller gathers and multiplies
-// after the launch. The TPU kernel's padding of the lanes to a multiple of
-// 1024 and its (8, 128) tiling are not kept.
+// Design. A persistent grid: as many 128-thread blocks as the card holds at
+// once (the occupancy API x the SMs), no more than the lanes fill, each
+// thread striding over the lanes. The first design, one thread a lane, ran
+// earth's 131,072 lanes as 1,024 blocks in 1.1 waves, the last mostly
+// empty; striding takes that tail (3% on earth; book2_final's 65,536 lanes
+// fill half a wave, so there the grid is the same). A lane runs
+// `shade_advance` of physics.cuh, so both steps shade with the same code.
+// Measured and not kept (PERF.md section 6): a work counter as B1's and B2's
+// (a lane is short, and the atomics of the warps' claims on one address
+// cost more than the balance they buy: 11-15% slower than striding); the
+// scene tables staged in shared memory (from 3% faster to 7% slower by
+// build, with the float Perlin tables or packed ones: the register
+// allocation moved more than the loads did); blocks of 64 or 256 threads,
+// and of 256 only under a wave (within 1%). The image texel of a lane that
+// goes on is fetched and multiplied into the throughput HERE; the TPU kernel
+// emits a texel-index row and its caller gathers and multiplies after the
+// launch. The TPU kernel's padding of the lanes to a multiple of 1024 and
+// its (8, 128) tiling are not kept.
 //
 // What bounds it: as the hybrid step, per-lane fp32 work of the shading
 // against 17 + 5 or 11 words read and 14 written per lane.
@@ -157,15 +175,16 @@ constexpr int SH_RO = 0, SH_RD = 3, SH_TIME = 6, SH_BETA = 7, SH_RAD = 10, SH_DO
               SH_ALIVE = 14;
 constexpr int SO_CONT = 0, SO_P = 1, SO_RD = 4, SO_BETA = 7, SO_RAD = 10;
 
+// One lane of the shade step.
 template <bool EXT_MAT, bool IMAGE>
-__global__ void __launch_bounds__(128)
-shade_step_kernel(Tables tb, RenderParams P, Atlas atlas, const float* __restrict__ f_in,
-                  const int* __restrict__ inside_in, const uint32_t* __restrict__ k_in,
-                  const float* __restrict__ ext_in, float* __restrict__ f_out,
-                  int* __restrict__ i_out) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+__device__ __forceinline__ void shade_lane(const Tables& tb, const RenderParams& P,
+                                           const Atlas& atlas, const float* __restrict__ f_in,
+                                           const int* __restrict__ inside_in,
+                                           const uint32_t* __restrict__ k_in,
+                                           const float* __restrict__ ext_in,
+                                           float* __restrict__ f_out, int* __restrict__ i_out,
+                                           int lane) {
   const int n = P.n;
-  if (lane >= n) return;
   V3 beta = load_row3(f_in, SH_BETA, n, lane);
   V3 rad = load_row3(f_in, SH_RAD, n, lane);
   bool cont = false;
@@ -190,6 +209,32 @@ shade_step_kernel(Tables tb, RenderParams P, Atlas atlas, const float* __restric
   store_row3(f_out, SO_BETA, n, lane, beta);
   store_row3(f_out, SO_RAD, n, lane, rad);
   i_out[lane] = new_inside;
+}
+
+template <bool EXT_MAT, bool IMAGE>
+__global__ void __launch_bounds__(MRT_SHADE_THREADS)
+shade_step_kernel(Tables tb, RenderParams P, Atlas atlas, const float* __restrict__ f_in,
+                  const int* __restrict__ inside_in, const uint32_t* __restrict__ k_in,
+                  const float* __restrict__ ext_in, float* __restrict__ f_out,
+                  int* __restrict__ i_out) {
+  for (int lane = blockIdx.x * blockDim.x + threadIdx.x; lane < P.n;
+       lane += gridDim.x * blockDim.x)
+    shade_lane<EXT_MAT, IMAGE>(tb, P, atlas, f_in, inside_in, k_in, ext_in, f_out, i_out, lane);
+}
+
+// The kernel instance and the grid mrt_shade_step launches for the
+// parameter block `ip`.
+using ShadeKernel = void (*)(Tables, RenderParams, Atlas, const float*, const int*,
+                             const uint32_t*, const float*, float*, int*);
+
+ShadeKernel shade_kernel(const int* ip) {
+  const bool em = ip[H_EXT_MAT] != 0, im = ip[H_IMAGE] != 0;
+  return em ? (im ? shade_step_kernel<true, true> : shade_step_kernel<true, false>)
+            : (im ? shade_step_kernel<false, true> : shade_step_kernel<false, false>);
+}
+
+Grid shade_grid(ShadeKernel kernel, int n) {
+  return persistent_grid(kernel, MRT_SHADE_THREADS, 0, n);
 }
 
 }  // namespace
@@ -232,14 +277,23 @@ int mrt_shade_step(const float* sph, const float* rect, const float* tri, const 
   RenderParams P = read_render_params(ip, 0.0f);
   Atlas atlas{images, ip[H_N_IMG], ip[H_IH], ip[H_IW]};
   if (P.n <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (P.n + threads - 1) / threads;
-  const bool em = ip[H_EXT_MAT] != 0, im = ip[H_IMAGE] != 0;
-  auto kernel = em ? (im ? shade_step_kernel<true, true> : shade_step_kernel<true, false>)
-                   : (im ? shade_step_kernel<false, true> : shade_step_kernel<false, false>);
-  MRT_LAUNCH(kernel, blocks, threads, 0, stream, tb, P, atlas, f_in, inside_in, k_in, ext, f_out,
-             i_out);
+  const ShadeKernel kernel = shade_kernel(ip);
+  const Grid g = shade_grid(kernel, P.n);
+  MRT_LAUNCH(kernel, g.blocks, MRT_SHADE_THREADS, 0, stream, tb, P, atlas, f_in, inside_in, k_in,
+             ext, f_out, i_out);
   return (int)cudaGetLastError();
+}
+
+// The grid mrt_shade_step launches for the parameter block `ip`: blocks an
+// SM holds, SMs, blocks, threads a block, dynamic shared memory in bytes
+// (always 0: the tables stay in global memory).
+void mrt_shade_step_grid(const int* ip, int* out) {
+  const Grid g = shade_grid(shade_kernel(ip), ip[P_N]);
+  out[0] = g.per_sm;
+  out[1] = g.sms;
+  out[2] = g.blocks;
+  out[3] = MRT_SHADE_THREADS;
+  out[4] = 0;
 }
 
 const char* mrt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

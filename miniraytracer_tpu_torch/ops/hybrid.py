@@ -333,8 +333,9 @@ def _external_candidate(scene, accel, rays: ix.Rays, alive, tmin, ptab=None,
     where there is none; in ext-material mode NE_MAT rows, mat_f = -1 (no row
     of the step's compacted material table matches it) and the winner's
     material evaluated here from the full tables, the texture sampled at the
-    record's exact uv. The texel-index row is always -1: an image texel of
-    an outside winner is fetched here, not deferred."""
+    record's exact uv (Perlin turbulence through kernel B6 without `plain`
+    and `coeffs`). The texel-index row is always -1: an image texel of an
+    outside winner is fetched here, not deferred."""
     n = rays.time.shape[0]
     emat = ext_mat_mode(scene)
     ext_box = _ext_types(scene)[2]
@@ -414,7 +415,13 @@ def _external_candidate(scene, accel, rays: ix.Rays, alive, tmin, ptab=None,
     midx = mat.long()
     mt, mp, mtex = scene.mat_type[midx], ix.gather(scene.mat_param, midx), scene.mat_tex[midx]
     p = rays.ro + rays.rd * safe_t
-    albedo = textures.sample_texture(scene, mtex, uu, vv, p, ptab)
+    # Perlin albedo through kernel B6 for the card's tensors, as the JAX
+    # package's XLA path computes it in XLA; the differentiable candidate
+    # keeps the tensor operations, whose gradient reaches p
+    perlin = None
+    if scene.has_perlin and coeffs is None:
+        perlin = {"perlin": noise.noise_tables(scene) if ptab is None else ptab}
+    albedo = textures.sample_texture(scene, mtex, uu, vv, p, ptab, accel=perlin, plain=plain)
     neg1 = zero - 1.0
     return (ext_t, nx, ny, nz, neg1, mt.to(torch.float32), mp,
             albedo.x, albedo.y, albedo.z, neg1)

@@ -10,9 +10,10 @@ The tables are the scene's six 256-entry rows (px py pz gx gy gz,
 `noise_tables`): the JAX package's (96, 128) lane-replicated layout exists
 only for the TPU's lane gather.
 
-`flash_turbulence` launches kernel B6 (`csrc/noise.cu`, one thread a point;
-its body is `physics.cuh::turbulence`, which the fused kernels B1, B4 and B5
-share) for CUDA tensors and runs `flash_turbulence_plain` for CPU tensors.
+`flash_turbulence` launches kernel B6 (`csrc/noise.cu`, a persistent grid
+striding over the points; its body is `physics.cuh::turbulence`, which the
+fused kernels B1, B2, B4 and B5 share) for CUDA tensors and runs
+`flash_turbulence_plain` for CPU tensors.
 The plain version is also the turbulence of the fused renderers' plain
 versions (`ops/bounce.py`) and of the textures in tensor operations
 (`models/textures.py`).
@@ -107,7 +108,7 @@ def flash_turbulence(ptab, p: V3):
     pts = [c.contiguous() for c in p]
     if any(c.device != dev or c.dtype != torch.float32 for c in pts):
         raise ValueError(f"p must be float32 tensors on {dev}")
-    if n >= 2 ** 31 - 1024:
+    if n >= 2 ** 31 - 2 ** 20:  # the kernel's grid-stride index stays an int
         raise ValueError("too many points for int32 indexing")
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     lib = kernels.load("noise")

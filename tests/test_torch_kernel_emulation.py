@@ -72,7 +72,7 @@ def host_libraries(tmp_path_factory):
         subprocess.run(
             [gxx, "-O1", "-std=c++17", "-ffp-contract=off", "-x", "c++",
              "-DMRT_HOST_EMULATION", "-DMRT_AD_THREADS=1", "-DMRT_FLASH_THREADS=1",
-             "-DMRT_NOISE_THREADS=1", "-DMRT_BOUNCE_THREADS=1",
+             "-DMRT_NOISE_THREADS=1", "-DMRT_BOUNCE_THREADS=1", "-DMRT_SHADE_THREADS=1",
              "-shared", "-fPIC",
              "-o", str(path), str(kernels.CSRC / f"{name}.cu")],
             check=True, capture_output=True, text=True, timeout=300)
@@ -648,6 +648,108 @@ def test_emulated_turbulence_matches_plain(emulated, n, span):
     assert tnoise.launches == launches + 1
     assert torch.equal(got, tnoise.flash_turbulence_plain(ptab, p))
     assert (pts < 0).any() and got.shape == (n,)
+
+
+@pytest.mark.parametrize("n", [1001, 65, 7])
+def test_emulated_turbulence_on_a_persistent_grid(emulated, host_libraries, n):
+    """B6 on a persistent grid of fewer threads than points (the emulated
+    card holds 3 one-thread blocks), so that a thread strides over point
+    after point from the tables its block staged: EQUAL to
+    `flash_turbulence_plain` on an odd count of points whose lattice cells
+    run negative."""
+    grid = (ctypes.c_int * 5)()
+    host_libraries["noise"].mrt_turbulence_grid(n, grid)
+    per_sm, sms, blocks, threads, smem = tuple(grid)
+    assert blocks * threads < n and blocks == per_sm * sms, tuple(grid)
+    ptab = tnoise.noise_tables(tscenes.random_spheres_2(1.0))
+    rs = np.random.default_rng(n)
+    pts = torch.as_tensor(rs.uniform(-40.0, 40.0, (3, n)).astype(np.float32))
+    pts[:, 0] = -3.5
+    p = V3(pts[0], pts[1], pts[2])
+    launches = tnoise.launches
+    got = tnoise.flash_turbulence(ptab, p)
+    assert tnoise.launches == launches + 1
+    assert torch.equal(got, tnoise.flash_turbulence_plain(ptab, p))
+    assert (pts < 0).any() and (got > 0).all()
+
+
+def _shade_grid(lib, cfg, n):
+    """(blocks an SM holds, SMs, blocks, threads, dynamic shared bytes) of a
+    launch of B5 on `n` lanes of the scene `cfg` packs."""
+    ip = tbounce.kernel_params(cfg.meta, n, 0, 0, width=1, height=1, max_bounces=0, spp_sq=1)
+    ip += [int(bool(cfg.meta.get("ext_mat"))), int(cfg.meta["image"]), *cfg.images.shape]
+    return _grid(lib, "mrt_shade_step_grid", ip)
+
+
+@pytest.mark.parametrize("name", ["hybrid_probe", "random_spheres", "earth", "book2_final"])
+def test_emulated_shade_step_on_a_persistent_grid(emulated, host_libraries, monkeypatch, name):
+    """B5 in its four modes (5 candidate rows; 11 rows; image texels with no
+    outside set; image texels with outside spheres and boxes) on a
+    persistent grid of fewer threads than lanes, so that a thread strides
+    over lane after lane: on the lanes of queue steps 0, 1, 2 and a late one
+    of a whole render, against the plain shade step as the work-queue test
+    holds it (`cont` and `new_inside` equal, floats within 1e-6 of the row's
+    scale: libm against PyTorch)."""
+    scene = _queue_scene(name)
+    w = h = 12
+    calls = []
+    real = thybrid.shade_step
+
+    def record(*args):
+        calls.append(args)
+        return thybrid.shade_step_plain(*args)
+
+    monkeypatch.setattr(thybrid, "shade_step", record)
+    tinteg.render_workqueue_pixels(scene, w * h, w * h, 4, 1000.0, width=w, height=h,
+                                   max_bounces=6, spp_sq=2)
+    monkeypatch.setattr(thybrid, "shade_step", real)
+    cfg = calls[0][0]
+    mode = ("ext_mat" if cfg.meta.get("ext_mat") else "image" if cfg.meta["image"] else "ext")
+    assert mode == {"hybrid_probe": "ext", "random_spheres": "ext_mat"}.get(name, "image")
+    n = w * h
+    per_sm, sms, blocks, threads, smem = _shade_grid(host_libraries["hybrid"], cfg, n)
+    assert blocks * threads < n and blocks == per_sm * sms and smem == 0
+    for t in (0, 1, 2, len(calls) - 2):
+        args = calls[t]
+        launches = thybrid.shade_launches
+        fk, ik = thybrid.shade_step(*args)
+        assert thybrid.shade_launches == launches + 1
+        fp, ip = thybrid.shade_step_plain(*args)
+        assert torch.equal(ik, ip) and torch.equal(fk[thybrid.SO_CONT], fp[thybrid.SO_CONT]), t
+        assert bool((fk[thybrid.SO_CONT] > 0).any()) or t > 2, t
+        scale = fp.abs().amax(dim=1, keepdim=True).clamp_min(1.0)
+        assert ((fk - fp).abs() <= 1e-6 * scale).all(), t
+
+
+@pytest.mark.parametrize("plain", [False, True])
+def test_emulated_external_candidate_samples_perlin_through_b6(emulated, plain):
+    """`hybrid._external_candidate` on random_spheres_2 (ext-material mode, a
+    Perlin texture among the outside spheres' materials): the winner's
+    Perlin albedo goes through kernel B6 (one launch a call) unless `plain`,
+    and through its plain version for the differentiable candidate
+    (`coeffs`); the rows are equal to the plain ones bit for bit either
+    way."""
+    scene = tscenes.random_spheres_2(1.0)
+    assert thybrid.ext_mat_mode(scene) and scene.has_perlin
+    w = h = 10
+    pix = torch.arange(w * h, dtype=torch.int32)
+    f, i, _, _ = thybrid.initial_state(scene, pix, 0, 1, width=w, height=h, spp_sq=1)
+    rays, alive = thybrid.state_rays(f, i), f[thybrid.R_ALIVE] > 0
+    accel = thybrid.hybrid_accel(scene)
+    ptab = tnoise.noise_tables(scene)
+    ref = thybrid._external_candidate(scene, accel, rays, alive, tbounce.TMIN, ptab, plain=True)
+    launches = tnoise.launches
+    rows = thybrid._external_candidate(scene, accel, rays, alive, tbounce.TMIN, ptab,
+                                       plain=plain)
+    assert tnoise.launches == launches + (0 if plain else 1)
+    assert all(torch.equal(a, b) for a, b in zip(rows, ref))
+    coeffs = thybrid.ext_coefficients(scene, accel)
+    rows = thybrid._external_candidate(scene, accel, rays, alive, tbounce.TMIN, ptab,
+                                       plain=plain, coeffs=coeffs)
+    assert tnoise.launches == launches + (0 if plain else 1)
+    assert all(torch.equal(a, b) for a, b in zip(rows, ref))
+    albedo = torch.stack(ref[7:10])
+    assert float(albedo.std()) > 0  # the winners' albedos vary: the rows carry a texture
 
 
 @pytest.mark.parametrize("name,accel,counters", [

@@ -182,6 +182,30 @@ def test_eager_queue_on_cuda_launches_kernels_and_matches_plain(name):
                                    chip_smoke.sphere_counters(flash, noise))
 
 
+@pytest.mark.cuda
+def test_external_candidate_on_cuda_samples_perlin_through_b6():
+    """`hybrid._external_candidate` on random_spheres_2 on the card (ext-
+    material mode: the outside winner's material is evaluated there) sends
+    its Perlin albedo to kernel B6, one launch a call, and its rows equal
+    the plain candidate's bit for bit (B6 equals its plain version)."""
+    _need_cuda()
+    from miniraytracer_tpu_torch.ops import noise
+
+    scene = mrt.scenes.random_spheres_2(1.0).to("cuda")
+    w = h = 32
+    pix = torch.arange(w * h, dtype=torch.int32, device="cuda")
+    f, i, _, _ = hybrid.initial_state(scene, pix, 0, 1, width=w, height=h, spp_sq=1)
+    rays, alive = hybrid.state_rays(f, i), f[hybrid.R_ALIVE] > 0
+    accel = hybrid.hybrid_accel(scene)
+    ptab = noise.noise_tables(scene)
+    launches = noise.launches
+    rows = hybrid._external_candidate(scene, accel, rays, alive, bounce.TMIN, ptab)
+    assert noise.launches == launches + 1
+    ref = hybrid._external_candidate(scene, accel, rays, alive, bounce.TMIN, ptab, plain=True)
+    assert noise.launches == launches + 1
+    assert all(torch.equal(a, b) for a, b in zip(rows, ref))
+
+
 def _cuda_triangles(tmp_path, monkeypatch, **mesh):
     monkeypatch.setenv("MRT_ASSETS", mrt.scenes.write_stand_in_meshes(str(tmp_path), **mesh))
     return mrt.scenes.triangles(1.0).to("cuda")

@@ -3,8 +3,9 @@
     python3 time_designs.py [--only GROUPS] [--count] [--trig] DIR [DIR ...]
 
 Each DIR is a copy of `miniraytracer_tpu_torch/csrc/` holding a variant of
-one or more of `bounce.cu` (B1), `bounce_ad.cu` (B2/B3) and `flash.cu` (the
-cluster loop of B9-B13), with the headers they include. Keep the directories
+one or more of `bounce.cu` (B1), `bounce_ad.cu` (B2/B3), `flash.cu` (the
+cluster loop of B9-B13), `hybrid.cu` (B5) and `noise.cu` (B6), with the
+headers they include. Keep the directories
 in a git-ignored place such as `_checkout/designs/`. Each source is built
 with the port's nvcc flags (`utils/kernels.py`) into a library beside it; the
 wrappers launch it in place of the checkout's build of the same name. The
@@ -13,8 +14,8 @@ Then, in turns (all variants, the order reversed every other round, each
 warmed first), with CUDA events:
 
 - b1 (bounce.cu): B1 alone on the Cornell box's frame at 500x500, 32
-  bounces, 64 and 4 samples a pixel; accum, count and rays equal to the
-  reference's on every pixel;
+  bounces, 64 and 4 samples a pixel, and on perlin_spheres' at 64; accum,
+  count and rays equal to the reference's on every pixel;
 - b2 (bounce_ad.cu): B2 at launch 50 of the Cornell box's scan (500x500, 32
   bounces, 128 samples a pixel) and over that whole scan (with the host's
   time to enqueue it), every row of that launch and every launch's state of
@@ -29,15 +30,27 @@ warmed first), with CUDA events:
   rect's distance as the work queue seeds it, with how its gated (ray,
   cluster) pairs spread over warps of 32 sorted rays; B13 on book2_final's
   and B12 on a 5000-sphere scene's queue step 2 (t and index equal on every
-  ray).
+  ray);
+- b5 (hybrid.cu): B5 alone on the lanes of queue steps 0, 2 and a late one
+  of earth's and book2_final's 500x500 renders (every row equal to the
+  reference's), timed at step 2;
+- b6 (noise.cu): B6 alone on the 131,072 points of random_spheres_2's queue
+  step 2 and on a million uniform points (every value equal), timed on the
+  first.
+B5 and B6 last 0.005-0.03 ms on the card, less than their wrappers take to
+enqueue them, so each of their turns is the median device time of 20
+launches queued behind a spin (`chip_smoke.queued_ms`).
+
+A DIR named probe_* is a probe: a copy that computes something else (a
+part of a kernel), timed beside the variants and not held equal.
 
 `--only b1,b2` picks groups (default: every group whose source a DIR holds).
 `--trig` holds the last DIR's `exact_sinf`/`exact_cosf` (physics.cuh) against
 CUDA's sinf/cosf on all 2^32 float inputs, bit for bit.
 Prints each variant's registers, stack and spills (ptxas -v), its SASS's
 local (LDL/STL), shared (LDS), global (LDG) and generic (LD) loads and calls,
-the grid a launch of B1 and B2 takes (blocks an SM holds from the occupancy
-API, SMs, blocks), the card's name and power limit, and per timing the median
+the grid a launch of B1, B2, B5 and B6 takes (blocks an SM holds from the
+occupancy API, SMs, blocks), the card's name and power limit, and per timing the median
 and the runs in ms. With `--count`, B1 and B2 of each variant are also built
 with lane counters (`lane_counting_copy`, never part of the port) and run
 once on the Cornell frame and scan: the share of a warp's lanes active where
@@ -61,13 +74,16 @@ import torch
 
 import chip_smoke as cs
 
-KINDS = ("bounce", "bounce_ad", "flash")
-GROUPS = {"b1": "bounce", "b2": "bounce_ad", "b3": "bounce_ad", "cluster": "flash"}
+KINDS = ("bounce", "bounce_ad", "flash", "hybrid", "noise")
+GROUPS = {"b1": "bounce", "b2": "bounce_ad", "b3": "bounce_ad", "cluster": "flash",
+          "b5": "hybrid", "b6": "noise"}
 # entry functions whose ptxas and SASS lines are printed, by kind
 ENTRIES = {"bounce": ("fused_render_kernel",),
            "bounce_ad": ("ad_step_fwd_kernel", "ad_step_bwd_kernel"),
            "flash": ("flash_tri_clustered_kernel", "flash_sphere_gated_kernel",
-                     "flash_sphere_streamed_kernel")}
+                     "flash_sphere_streamed_kernel"),
+           "hybrid": ("shade_step_kernel", "hybrid_step_kernel"),
+           "noise": ("turbulence_kernel",)}
 
 
 def nvcc_build(src, out):
@@ -180,45 +196,48 @@ def launched_with(kind, lib, fn):
         return fn()
 
 
-def in_turns(what, kind, libs, fn, reps, rounds=3, per=1):
+def in_turns(what, kind, libs, fn, reps, rounds=3, per=1, queued=False):
     """Median ms of `reps` calls of fn() (divided by `per`) for each variant,
-    in turns; prints them beside the first variant's."""
+    in turns; prints them beside the first variant's. With `queued`, a turn is
+    the median device time of `reps` calls queued behind a spin
+    (`chip_smoke.queued_ms`), so that a short kernel's wrapper is not what is
+    timed."""
     for lib in libs.values():
         launched_with(kind, lib, fn)
     torch.cuda.synchronize()
     ms = {name: [] for name in libs}
     names = list(libs)
+    turn = ((lambda: statistics.median(cs.queued_ms(fn, reps))) if queued else
+            (lambda: cs.cuda_ms(lambda: [fn() for _ in range(reps)], 1)[0] / reps / per))
     for r in range(rounds):
         for name in (names if r % 2 == 0 else names[::-1]):
-            t = launched_with(kind, libs[name],
-                              lambda: cs.cuda_ms(lambda: [fn() for _ in range(reps)], 1)[0])
-            ms[name].append(t / reps / per)
+            ms[name].append(launched_with(kind, libs[name], turn))
     base = statistics.median(ms[names[0]])
     print(f"  {what}:")
     for name, runs in ms.items():
         m = statistics.median(runs)
-        print(f"    {name:10s} {m:.4f} ms ({m / base:.3f} of {names[0]}); runs "
-              f"{[round(x, 4) for x in runs]}")
+        print(f"    {name:10s} {m:.5f} ms ({m / base:.3f} of {names[0]}); runs "
+              f"{[round(x, 5) for x in runs]}")
 
 
 def time_b1(mrt, libs, dev):
     from miniraytracer_tpu_torch.ops import bounce
 
-    scene = mrt.scenes.cornell_box(1.0).to(dev)
-    meta, tables = bounce.pack_scene(scene)
     pix = torch.arange(500 * 500, dtype=torch.int32, device=dev)
     first = next(iter(libs))
-    for spp_sq, reps in ((8, 3), (2, 5)):
+    for name, spp_sq, reps in (("cornell_box", 8, 3), ("cornell_box", 2, 5),
+                               ("perlin_spheres", 8, 2)):
+        meta, tables = bounce.pack_scene(getattr(mrt.scenes, name)(1.0).to(dev))
         kw = dict(width=500, height=500, max_bounces=32, spp_sq=spp_sq)
         frame = lambda: bounce._launch_kernel(meta, tables, pix, 0, spp_sq * spp_sq, 1000.0, **kw)
         ref = launched_with("bounce", libs[first], frame)
-        for name, lib in libs.items():
+        for vname, lib in libs.items():
             out = launched_with("bounce", lib, frame)
             cs.check(all(torch.equal(a, b) for a, b in zip(out, ref)),
-                     f"B1 {name} differs from {first} at {spp_sq ** 2} spp")
-        print(f"  B1 at 500x500x{spp_sq ** 2}x32: every variant equals {first} on every pixel "
-              f"(accum, count, rays); {int(ref[2].sum(dtype=torch.int64))} rays")
-        in_turns(f"B1, the Cornell frame at 500x500x{spp_sq ** 2}x32 ({reps} a timing)", "bounce",
+                     f"B1 {vname} differs from {first} on {name} at {spp_sq ** 2} spp")
+        print(f"  B1 on {name} at 500x500x{spp_sq ** 2}x32: every variant equals {first} on every "
+              f"pixel (accum, count, rays); {int(ref[2].sum(dtype=torch.int64))} rays")
+        in_turns(f"B1, the {name} frame at 500x500x{spp_sq ** 2}x32 ({reps} a timing)", "bounce",
                  libs, frame, reps)
 
 
@@ -472,6 +491,62 @@ def time_cluster_loop(mrt, libs, dev):
         torch.cuda.empty_cache()
 
 
+def same_rows(what, kind, libs, fn):
+    """fn()'s outputs with every variant equal to the first variant's, bit for
+    bit; a probe (a DIR named probe_*, which computes something else to
+    time a part of the kernel) is timed only."""
+    first = next(iter(libs))
+    ref = launched_with(kind, libs[first], fn)
+    probes = [name for name in libs if name.startswith("probe_")]
+    for name, lib in libs.items():
+        if name not in probes:
+            out = launched_with(kind, lib, fn)
+            cs.check(cs.equal_outputs(out, ref), f"{what}: {name} differs from {first}")
+    print(f"  {what}: every variant equals {first} bit for bit"
+          + (f" (probes, timed only: {', '.join(probes)})" if probes else ""))
+
+
+def time_b5(mrt, libs, dev):
+    """B5 alone on the lanes of queue steps 0, 2 and a late one of earth's and
+    book2_final's 500x500 renders (every row equal), timed at step 2."""
+    from miniraytracer_tpu_torch.models import integrator
+    from miniraytracer_tpu_torch.ops import hybrid
+
+    for name in ("earth", "book2_final"):
+        sc = getattr(mrt.scenes, name)(1.0).to(dev)
+        calls = cs.queue_snapshots(integrator, hybrid, sc, 500, 500, 2, 32,
+                                   integrator.wq_auto_lanes(sc, 500 * 500))
+        for t in (0, 2, len(calls) - 4):
+            args = calls[t]
+            alive = int((args[1][hybrid.SH_ALIVE] > 0).sum())
+            same_rows(f"B5 {name} queue step {t} ({args[1].shape[1]} lanes, {alive} alive)",
+                      "hybrid", libs, lambda: hybrid.shade_step(*args))
+        args = calls[2]
+        in_turns(f"B5 alone, {name} queue step 2, device ms a launch", "hybrid", libs,
+                 lambda: hybrid.shade_step(*args), 20, queued=True)
+        del calls
+        torch.cuda.empty_cache()
+
+
+def time_b6(mrt, libs, dev):
+    """B6 alone on the 131,072 points of random_spheres_2's queue step 2 and on
+    uniform points (every value equal), timed on the first."""
+    from miniraytracer_tpu_torch.models import integrator
+    from miniraytracer_tpu_torch.ops import noise
+    from miniraytracer_tpu_torch.ops.vecmath import V3
+
+    rs2 = mrt.scenes.random_spheres_2(1.0).to(dev)
+    ptab, p, n_perlin = cs.turbulence_points(integrator, noise, rs2, 500, 2)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    u = torch.rand((3, 1_000_003), generator=gen, device=dev) * 600.0 - 300.0
+    same_rows(f"B6 on random_spheres_2's queue step 2 ({p.x.numel()} points, {n_perlin} on a "
+              f"Perlin surface)", "noise", libs, lambda: noise.flash_turbulence(ptab, p))
+    same_rows("B6 on 1,000,003 uniform points in [-300, 300]^3", "noise", libs,
+              lambda: noise.flash_turbulence(ptab, V3(u[0], u[1], u[2])))
+    in_turns(f"B6 alone, {p.x.numel()} points, device ms a launch", "noise", libs,
+             lambda: noise.flash_turbulence(ptab, p), 20, queued=True)
+
+
 TRIG_SRC = """#include "physics.cuh"
 __global__ void trig_kernel(unsigned long long* bad) {
   const uint64_t stride = (uint64_t)gridDim.x * blockDim.x;
@@ -534,6 +609,21 @@ extern "C" void mrt_{fn}(const int* ip, int* out) {{
 """
 
 
+# The grid queries of B5 and B6 (absent from the parent's design, one thread
+# a unit): the function, and what it is asked (filled in by main).
+GRID_FNS = {"hybrid": "mrt_shade_step_grid", "noise": "mrt_turbulence_grid"}
+GRID_ARGS = {"noise": [("turbulence_kernel at 131,072 points", 131072)]}
+
+
+def shade_params(bounce, meta, n):
+    """The parameter block of a shade step on n lanes of the packed scene
+    `meta`, as `hybrid.shade_step` builds it (an atlas of one 512 x 1024
+    image), as a ctypes array."""
+    ip = bounce.kernel_params(meta, n, 0, 0, width=1, height=1, max_bounces=0, spp_sq=1)
+    ip += [int(bool(meta.get("ext_mat"))), int(meta["image"]), 1, 512, 1024]
+    return (ctypes.c_int * len(ip))(*ip)
+
+
 def grid_of(path, kind, lib, ip):
     """(blocks an SM holds, SMs, blocks, threads, dynamic shared bytes) of a
     launch of B1 or B2 with the parameter block `ip`: the variant's own
@@ -559,7 +649,7 @@ def main():
     args = parser.parse_args()
     cs.check(torch.cuda.is_available(), "no CUDA device: this script needs a GPU")
     import miniraytracer_tpu_torch as mrt
-    from miniraytracer_tpu_torch.ops import bounce, bounce_ad
+    from miniraytracer_tpu_torch.ops import bounce, bounce_ad, hybrid
     from miniraytracer_tpu_torch.utils import kernels
 
     groups = args.only.split(",")
@@ -577,10 +667,16 @@ def main():
                              build(copies[job[0]], job[1])[2]),
                 [job for job in jobs if job[1] in ("bounce", "bounce_ad")]))
         trig = pool.submit(trig_check_build, args.dirs[-1]) if args.trig else None
-        for name in ("bounce", "bounce_ad", "flash", "hybrid"):
+        for name in ("bounce", "bounce_ad", "flash", "hybrid", "noise"):
             kernels.build(name)
     meta, _ = bounce.pack_scene(mrt.scenes.cornell_box(1.0))
     _, claim, k_sub, _ = bounce_ad.scan_plan(128, 32)
+    earth_meta, _ = hybrid.pack_scene_hybrid(mrt.scenes.earth(1.0))
+    book2_meta, _ = hybrid.pack_scene_hybrid(mrt.scenes.book2_final(1.0))
+    GRID_ARGS["hybrid"] = [("shade_step_kernel on earth's 131,072 lanes",
+                            shade_params(bounce, earth_meta, 131072)),
+                           ("shade_step_kernel on book2_final's 65,536 lanes",
+                            shade_params(bounce, book2_meta, 65536))]
     ips = {"bounce": bounce.kernel_params(meta, 250000, 0, 64, width=500, height=500,
                                           max_bounces=32, spp_sq=8),
            "bounce_ad": bounce_ad.kernel_params(
@@ -593,10 +689,20 @@ def main():
                 print(f"  {name}: {line.strip()}")
             for fn, c in sass_counts(path, entry).items():
                 print(f"  {name}: SASS of {fn[:60]}: {c}")
+        grids = []
         if kind in PROBE:
-            per_sm, sms, blocks, threads, smem = grid_of(os.path.dirname(path), kind, lib,
-                                                         ips[kind])
-            print(f"  {name}: {ENTRIES[kind][0]} on the Cornell box at 500x500: {per_sm} blocks "
+            grids.append((f"{ENTRIES[kind][0]} on the Cornell box at 500x500",
+                          grid_of(os.path.dirname(path), kind, lib, ips[kind])))
+        elif kind in GRID_FNS and hasattr(lib, GRID_FNS[kind]):
+            for what, arg in GRID_ARGS[kind]:
+                out = (ctypes.c_int * 5)()
+                getattr(lib, GRID_FNS[kind])(arg, out)
+                grids.append((what, tuple(out)))
+        elif kind in GRID_FNS:
+            print(f"  {name}: {GRID_FNS[kind]} absent: one thread a unit, "
+                  f"{'128' if kind == 'hybrid' else '256'} a block")
+        for what, (per_sm, sms, blocks, threads, smem) in grids:
+            print(f"  {name}: {what}: {per_sm} blocks "
                   f"of {threads} an SM (occupancy API) x {sms} SMs; launches {blocks} blocks, "
                   f"{smem} B of dynamic shared memory ({blocks / max(per_sm * sms, 1):.2f} "
                   f"waves)")
@@ -613,6 +719,10 @@ def main():
         time_b3(mrt, libs["bounce_ad"], dev)
     if "cluster" in groups and libs["flash"]:
         time_cluster_loop(mrt, libs["flash"], dev)
+    if "b5" in groups and libs["hybrid"]:
+        time_b5(mrt, libs["hybrid"], dev)
+    if "b6" in groups and libs["noise"]:
+        time_b6(mrt, libs["noise"], dev)
     print(card)
 
 
