@@ -57,7 +57,18 @@ the ported paths on the card:
   fused="ext" and a 200-triangle probe, then `make_train_step(fused_ad="ext")`
   at 500x500, 32 bounces, 8 samples a step: three steps on random_spheres
   whose loss on a held-out sample set must fall, and timed steps on
-  triangles (stand-in meshes), earth and book2_final.
+  triangles (stand-in meshes), earth and book2_final;
+- the JAX package's default train step and its progressive renderer (phases
+  31-33): the packed scan of `make_train_step(fused_ad=False)` (the bounce
+  in tensor operations under autograd, each scan step rematerialised, the
+  sweeps of flash.cu under their custom VJPs) against its plain version in
+  loss and gradients on random_spheres_2 (B8), triangles (B10),
+  book2_final (B13) and two probes (B7, B12), with the recompute of a step
+  equal to its forward to the bit; then random_spheres_2 trained at 500x500, 32 bounces on the JAX
+  package's AD protocol (`pack=16, spp_step=8`: 2,000,000 items, 125,000
+  lanes, 129 scan steps) beside `fused_ad="ext"` on the same protocol, the
+  fused Cornell step against the packed scan at 500x500, and
+  `render_progressive` against the reference renderer's frames.
 
 With a copy of the parent commit's `miniraytracer_tpu_torch/csrc/` in
 `miniraytracer_tpu_torch/_build/parent_csrc/` (git-ignored), the redesigned
@@ -520,6 +531,15 @@ def main() -> None:
         t0 = time.perf_counter()
         kernel_rows += phases()
         print(f"phase{'s' if '-' in name else ''} {name} took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    scan_launches = scan_phases(mrt, flash, dev, card_line, refs)
+    print(f"phases 31-33 took {time.perf_counter() - t0:.1f} s")
+    # the scan path's launches beside each sweep's row: one phase-32 step
+    # (500x500) and one phase-31 loss and gradient (64x64)
+    for row in kernel_rows:
+        if row["name"] in {name for _, name in SCAN_COUNTERS.values()}:
+            row.update({"scan_step_launches": 0, "scan_launches_small": 0,
+                        **scan_launches.get(row["name"], {})})
     print(f"all phases took {time.perf_counter() - t_start:.1f} s")
 
     print(card_line)
@@ -530,23 +550,26 @@ def main() -> None:
 
 
 def device_share(fn):
-    """One fn() under torch.profiler: (wall ms, device busy ms, {kernel name:
-    (device ms, launches)}). The wall time ends after a synchronize; the
-    profiler itself slows the host, so the idle share it gives is an upper
-    bound."""
+    """One fn() under torch.profiler (device activity only): (wall ms, device
+    busy ms, {kernel name: (device ms, launches)}). The wall time ends after
+    a synchronize; the profiler itself slows the host, so the idle share it
+    gives is an upper bound. The raw trace events are summed as they are
+    (building the profiler's Python event list takes minutes for a train
+    step's million launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     by_name = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            ms, count = by_name.get(ev.name, (0.0, 0))
-            by_name[ev.name] = (ms + ev.time_range.elapsed_us() / 1e3, count + 1)
+    cuda = torch.autograd.DeviceType.CUDA
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == cuda:
+            ms, count = by_name.get(ev.name(), (0.0, 0))
+            by_name[ev.name()] = (ms + ev.duration_ns() / 1e6, count + 1)
     return wall, sum(ms for ms, _ in by_name.values()), by_name
 
 
@@ -2525,6 +2548,252 @@ def ext_train_phases(mrt, bounce, bounce_ad, flash, hybrid, dev, card_line, size
         ]
         del run, c["run"], states
         torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# The scan AD paths (fused_ad=False) and the progressive renderer
+# ---------------------------------------------------------------------------
+
+# the sweeps the scan paths launch, by kernel: (counter, result row's name)
+SCAN_COUNTERS = {"B8": ("sphere_launches", "flash_sphere_hit"),
+                 "B13": ("gated_launches", "flash_sphere_hit_gated"),
+                 "B12": ("streamed_launches", "flash_sphere_hit_streamed"),
+                 "B10": ("resident_launches", "flash_tri_hit_resident"),
+                 "B11": ("tri_streamed_launches", "flash_tri_hit_streamed"),
+                 "B7": ("tri_launches", "flash_tri_hit")}
+
+
+def sweep_counts(flash):
+    return {k: getattr(flash, attr) for k, (attr, _) in SCAN_COUNTERS.items()}
+
+
+def tensors_of(obj):
+    """The tensors of a nest of tuples (PackedState, V3) in order."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, (tuple, list)):
+        return [t for o in obj for t in tensors_of(o)]
+    return []
+
+
+def scan_loss_grads(mrt, train, scene, w, bounces, pack, spp_step, plain, remat_calls=None):
+    """`train.scan_loss` (the loss of make_train_step(fused_ad=False)) of the
+    scene's TrainParams against a flat grey target, and its gradient for
+    every leaf. With `remat_calls`, a list, each rematerialised scan step's
+    (fn, args, outputs) is appended to it."""
+    from miniraytracer_tpu_torch.models import integrator
+
+    leaves = mrt.TrainParams(*(p.detach().clone().requires_grad_(True)
+                               for p in mrt.extract_params(scene)))
+    target = torch.full((w * w, 3), 0.25, device=scene.device)
+    offsets = integrator.sample_offsets(64, device=scene.device)[0]
+    real = integrator._remat
+
+    def recording(remat, fn, *args):
+        out = real(remat, fn, *args)
+        if remat:
+            remat_calls.append((fn, args, [t.detach() for t in tensors_of(out)]))
+        return out
+
+    stats = {}
+    integrator._remat = real if remat_calls is None else recording
+    try:
+        loss = train.scan_loss(mrt.apply_params(scene, leaves), target, 0, offsets, width=w,
+                               height=w, max_bounces=bounces, pack=pack, spp_step=spp_step,
+                               plain=plain, stats=stats)
+    finally:
+        integrator._remat = real
+    grads = torch.autograd.grad(loss, list(leaves), allow_unused=True)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g
+                           for p, g in zip(leaves, grads)], stats
+
+
+def scan_phases(mrt, flash, dev, card_line, refs, size=500, small=64):
+    """Phases 31-33: the scan AD paths, kernels against plain versions (at
+    `small` x `small`); `make_train_step(fused_ad=False)` at `size` x
+    `size`, beside the hybrid-ext step and the fused step; the progressive
+    renderer against the reference renderer's frames. Returns the scan
+    path's launches of each sweep kernel it ran, by result row's name: a
+    phase-32 step's ("scan_step_launches") and a phase-31 loss and gradient
+    at `small` x `small` on the scene that runs it ("scan_launches_small")."""
+    from miniraytracer_tpu_torch.models import integrator
+    from miniraytracer_tpu_torch.parallel import train
+
+    t_phase = time.perf_counter()
+    # 31. kernels against plain versions, loss, gradients and the recompute
+    w, bounces, pack, spp_step = small, 8, 8, 2
+    print(f"phase 31: packed scan (make_train_step(fused_ad=False)'s loss), kernels vs plain "
+          f"PyTorch, {w}x{w}, {bounces} bounces, pack={pack}, spp_step={spp_step}")
+    small_launches = {}
+    probes = {"random_spheres_2": ("B8", mrt.scenes.random_spheres_2(1.0)),
+              "triangles (stand-in meshes)": ("B10", triangles_scene(mrt)),
+              "book2_final": ("B13", mrt.scenes.book2_final(1.0)),
+              # no scene of nine routes the scans to B7 or B12
+              "hybrid_probe (80 spheres, 200 triangles)": (
+                  "B7", mrt.scenes.hybrid_probe(1.0, 80, 200)),
+              "hybrid_probe (5000 spheres)": ("B12", mrt.scenes.hybrid_probe(1.0, 5000, 0))}
+    for name, (kernel, scene) in probes.items():
+        scene = scene.to(dev)
+        before = sweep_counts(flash)
+        calls = []
+        lk, gk, sk = scan_loss_grads(mrt, train, scene, w, bounces, pack, spp_step, False, calls)
+        launched = {k: v - before[k] for k, v in sweep_counts(flash).items() if v > before[k]}
+        lp, gp, sp = scan_loss_grads(mrt, train, scene, w, bounces, pack, spp_step, True)
+        worst, seen = 0.0, []
+        for leaf, a, b in zip(mrt.TrainParams._fields, gk, gp):
+            check(torch.isfinite(a).all().item(), f"{name}: grad {leaf} not finite")
+            if b.numel() and float(b.abs().max()) > 0:
+                seen.append(leaf)
+            scale = max(float(b.abs().max()) if b.numel() else 0.0, 1e-3)
+            if b.numel():
+                worst = max(worst, ((a - b).abs() - 5e-3 * b.abs()).max().item() / (5e-4 * scale))
+        # the recompute: steps 0, the middle one and the last run again as the
+        # backward runs them, every output equal to the forward's to the bit
+        same = True
+        for j in sorted({0, len(calls) // 2, len(calls) - 1}):
+            fn, args, out = calls[j]
+            with torch.enable_grad():
+                again = [t.detach() for t in tensors_of(fn(*args))]
+            same &= len(again) == len(out) and all(torch.equal(a, b) for a, b in zip(again, out))
+        del calls
+        rk, rp = int(sk["rays"]), int(sp["rays"])
+        print(f"  {name}: rays kernel {rk} plain {rp}, done {int(sk['done'])} of "
+              f"{w * w * spp_step}; loss kernel {float(lk):.7g} plain {float(lp):.7g}; grads of "
+              f"{', '.join(seen)}: worst excess over rtol 5e-3 / atol 5e-4*scale {worst:.3g} "
+              f"(<= 1 passes); recompute of steps 0, mid, last equal to the forward bit for bit: "
+              f"{same}; sweeps launched {launched}")
+        check(launched.get(kernel, 0) > 0, f"{name}: the scan did not launch {kernel}")
+        small_launches[kernel] = launched.get(kernel, 0)
+        check(abs(rk - rp) <= 1e-3 * rp, f"{name}: ray counts differ by more than 0.1%")
+        check(abs(float(lk) - float(lp)) <= 1e-4 * abs(float(lp)), f"{name}: losses differ")
+        check(worst <= 1.0, f"{name}: TrainParams grads differ from plain")
+        check(same, f"{name}: the recompute differs from the forward")
+        check("sph_c0" in seen or "tri_m" in seen, f"{name}: no geometry gradient")
+    print(f"  phase 31 took {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+
+    # 32. the JAX package's AD protocol (benchmarks/ad_scenes.py) at full width
+    w, bounces, pack, spp_step = size, 32, 16, 8
+    scan_steps = pack * 6 + bounces + 1
+    n_items = w * w * spp_step
+    print(f"phase 32: make_train_step(random_spheres_2, {w}x{w}, {bounces} bounces, "
+          f"fused_ad=False, pack={pack}, spp_step={spp_step}): {n_items} items, "
+          f"{n_items // pack} lanes, {scan_steps} scan steps")
+    scene_cpu = mrt.scenes.random_spheres_2(1.0)
+    scene = scene_cpu.to(dev)
+    params0 = mrt.extract_params(scene)
+    target = torch.full((w * w, 3), 0.25, device=dev)
+    scan_launches = {}
+
+    def protocol(label, step, items):
+        stats = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = sweep_counts(flash)
+        t0 = time.perf_counter()
+        _, loss, grads = step(params0, scene, target, 0, 0.0, stats=stats)
+        torch.cuda.synchronize()
+        warm_ms = 1e3 * (time.perf_counter() - t0)
+        launched = {k: v - before[k] for k, v in sweep_counts(flash).items() if v > before[k]}
+        peak = torch.cuda.max_memory_allocated()
+        finite = torch.isfinite(loss).item() and all(torch.isfinite(g).all().item()
+                                                     for g in grads)
+        rays, done = int(stats["rays"]), int(stats["done"])
+        one_step = lambda: step(params0, scene, target, 0, 0.0)
+        # after the warm step, two timed ones, or one where a step takes over 20 s
+        step_ms = cuda_ms(one_step, 1 if warm_ms > 20e3 else 2)
+        med = statistics.median(step_ms)
+        wall, busy, by_name = device_share(one_step)
+        print(f"  {label}: step {med:.1f} ms (median of {len(step_ms)} after the warm step; "
+              f"runs {step_ms}; the warm step {warm_ms:.1f} ms); rays "
+              f"{rays}; fwd+bwd {rays / (med / 1e3) / 1e6:.3f} Mrays/s; done_frac "
+              f"{done / items:.5f}; peak memory {peak / 2**30:.2f} GiB; every gradient finite: "
+              f"{finite}; sweeps launched a step {launched}; on {card_line}")
+        print(f"    one step under torch.profiler: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+              f"(idle share {max(0.0, 1 - busy / wall):.3f}), "
+              f"{sum(c for _, c in by_name.values())} launches on the device")
+        for kname, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:4]:
+            print(f"      {ms:8.2f} ms  {100 * ms / busy:5.1f}%  x{count:<6d} {kname[:80]}")
+        check(finite, f"{label}: loss or gradients not finite")
+        return launched, loss, grads
+
+    step = mrt.make_train_step(width=w, height=w, max_bounces=bounces, fused_ad=False,
+                               pack=pack, spp_step=spp_step)
+    launched, _, _ = protocol("packed scan", step, n_items)
+    check(launched.get("B8", 0) == 2 * scan_steps,
+          "the packed scan did not launch B8 once a scan step and once in its recompute")
+    scan_launches.update(launched)
+    step_ext = mrt.make_train_step(width=w, height=w, max_bounces=bounces, spp_step=spp_step,
+                                   fused_ad="ext", scene=scene_cpu)
+    protocol("hybrid-ext step (fused_ad='ext', the same protocol)", step_ext, n_items)
+    del step, step_ext
+    torch.cuda.empty_cache()
+
+    # the Cornell cross-check: the fused step against the packed scan on the
+    # same items (sample 0 of every pixel at offset 0), a scan long enough
+    # for every item
+    cornell = mrt.scenes.cornell_box(1.0).to(dev)
+    pack_c, steps_c = 8, 8 * (bounces + 1) + 2
+    print(f"  Cornell {w}x{w}, {bounces} bounces, spp_step=1: fused_ad=True against "
+          f"fused_ad=False, pack={pack_c}, scan_steps={steps_c}")
+    target_c = torch.full((w * w, 3), 0.25, device=dev)
+    out = {}
+    for label, kw in (("fused", dict(fused_ad=True)),
+                      ("packed", dict(fused_ad=False, pack=pack_c, scan_steps=steps_c))):
+        st = {}
+        stc = mrt.make_train_step(width=w, height=w, max_bounces=bounces, spp_step=1, **kw)
+        t0 = time.perf_counter()
+        _, loss, grads = stc(mrt.extract_params(cornell), cornell, target_c, 0, 0.0, stats=st)
+        torch.cuda.synchronize()
+        out[label] = (loss, grads, int(st["done"]), int(st["rays"]),
+                      1e3 * (time.perf_counter() - t0))
+    (lf, gf, df, rf, tf), (lq, gq, dq, rq, tq) = out["fused"], out["packed"]
+    worst = 0.0
+    for a, b in zip(gf, gq):
+        if b.numel():
+            scale = max(float(b.abs().max()), 1e-3)
+            worst = max(worst, ((a - b).abs() - 1e-2 * b.abs()).max().item() / (1e-2 * scale))
+    print(f"    loss fused {float(lf):.7g} packed {float(lq):.7g} (rel diff "
+          f"{abs(float(lf) - float(lq)) / float(lq):.3g}); samples done {df} / {dq} of {w * w}; "
+          f"rays {rf} / {rq}; step {tf:.1f} / {tq:.1f} ms (first calls); grads worst excess over "
+          f"rtol 1e-2 / atol 1e-2*scale {worst:.3g} (<= 1 passes)")
+    check(df == dq == w * w, "Cornell cross-check: a sample was not done")
+    check(abs(float(lf) - float(lq)) <= 1e-3 * float(lq), "Cornell cross-check: losses differ")
+    check(worst <= 1.0, "Cornell cross-check: gradients differ")
+    del out, gf, gq
+    torch.cuda.empty_cache()
+    print(f"  phase 32 took {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+
+    # 33. the progressive renderer against the reference renderer's frames,
+    # at phases 4's and 21's tolerances, and one timed frame
+    print("phase 33: render_progressive vs reference renderer, 100x100, 16 spp, 16 bounces")
+    for name, tol in (("cornell_box", PARITY_TOL["cornell_box"]), ("random_spheres_2", 0.02)):
+        before = sweep_counts(flash)
+        frame, st = mrt.render_progressive(getattr(mrt.scenes, name)(1.0), 100, 100, 16,
+                                           max_bounces=16)
+        launched = {k: v - before[k] for k, v in sweep_counts(flash).items() if v > before[k]}
+        ours = frame.cpu().numpy()
+        check(np.isfinite(ours).all() and frame.is_cuda, f"{name}: frame not finite")
+        ref_mean = refs[name].mean(axis=(0, 1))
+        rel = np.abs(ref_mean - ours.mean(axis=(0, 1))) / np.maximum(ref_mean, 1e-6)
+        print(f"  {name}: channel means rel diff {rel.max():.4f} (tolerance {tol}), rays "
+              f"{st['rays']}, sweeps launched {launched}")
+        check(rel.max() < tol, f"{name}: progressive reference parity")
+    cornell_cpu = mrt.scenes.cornell_box(1.0)
+    mrt.render_progressive(cornell_cpu, w, w, 1, max_bounces=bounces)  # warm
+    frame, st = mrt.render_progressive(cornell_cpu, w, w, 16, max_bounces=bounces)
+    check(torch.isfinite(frame).all().item(), "progressive Cornell frame not finite")
+    print(f"  render_progressive(cornell_box, {w}, {w}, 16, max_bounces={bounces}): "
+          f"{1e3 * st['seconds']:.1f} ms, {st['rays']} rays, {st['mrays_per_s']:.2f} Mrays/s on "
+          f"{card_line}")
+    print(f"  phase 33 took {time.perf_counter() - t_phase:.1f} s")
+    rows = {}
+    for key, field in ((scan_launches, "scan_step_launches"),
+                       (small_launches, "scan_launches_small")):
+        for k, v in key.items():
+            rows.setdefault(SCAN_COUNTERS[k][1], {})[field] = v
     return rows
 
 

@@ -1,6 +1,6 @@
 """miniraytracer_tpu_torch — the PyTorch/CUDA port of miniraytracer_tpu.
 
-Six paths are ported. For the fused scene class (cornell_box,
+Eight paths are ported. For the fused scene class (cornell_box,
 cornell_smoke, two_spheres, perlin_spheres): the forward path tracer
 (`render`, kernel `csrc/bounce.cu`) and the differentiable train step
 (`make_train_step`, kernels `csrc/bounce_ad.cu`: the scan step and its
@@ -19,6 +19,17 @@ triangle set of 1024 or more (the triangles scene's meshes, about 11,300) is
 swept over Morton clusters by the clustered triangle sweeps of
 `csrc/flash.cu`, in every renderer. The kernels are hand-written CUDA, built
 with nvcc on first use.
+
+The JAX package's default train step is ported too: `make_train_step(...,
+fused_ad=False)` trains every scene through the scans of
+`models/integrator.py` (`sample_radiance(loop="scan")`, one sample a pixel,
+or `sample_radiance_packed` with `pack` items a lane and `spp_step` samples
+a pixel): the bounce in tensor operations under autograd, each scan step
+rematerialised in the backward (`torch.utils.checkpoint`), the sphere and
+triangle sets swept by the kernels of `csrc/flash.cu` under their custom
+VJPs (`intersect.make_accel(differentiable=True)`). `render_progressive` is
+the JAX package's progressive renderer (one sample of every pixel a pass,
+the draw2 average), with the while or the scan loop.
 
 The entry points run on the NVIDIA GPU: `device=None` means "cuda", the scene
 is moved there, and with no card the call raises. `device="cpu"` runs the
@@ -41,6 +52,17 @@ Quick start:
                                spp_step=128)
     params = mrt.extract_params(scene)
     params, loss, grads = step(params, scene, target, sample0=0, lr=0.5)
+    # any scene, the JAX package's default step (the packed scan):
+    rs2 = mrt.scenes.random_spheres_2(1.0)
+    step = mrt.make_train_step(width=500, height=500, max_bounces=32,
+                               fused_ad=False, pack=16, spp_step=8)
+    params, loss, grads = step(mrt.extract_params(rs2), rs2, target, 0, 0.5)
+    frame, stats = mrt.render_progressive(scene, 500, 500, 16)
+
+CPU tests of the scans and the progressive renderer against the JAX
+package: `python -m pytest tests/test_torch_scan.py
+tests/test_torch_scan_train.py tests/test_torch_scan_packed.py`;
+`python3 chip_smoke.py` runs them on the card (phases 31-33).
 """
 
 __version__ = "0.1.0"
@@ -49,10 +71,13 @@ from miniraytracer_tpu_torch.scene.types import SceneData, Camera  # noqa: F401
 from miniraytracer_tpu_torch.scene.builder import SceneBuilder  # noqa: F401
 from miniraytracer_tpu_torch.models import scenes  # noqa: F401
 from miniraytracer_tpu_torch.models.integrator import (  # noqa: F401
+    render as render_progressive,
     render_auto as render,
     render_wavefront,
     render_workqueue,
     pick_renderer,
+    sample_radiance,
+    sample_radiance_packed,
 )
 from miniraytracer_tpu_torch.parallel.train import (  # noqa: F401
     TrainParams,

@@ -1,29 +1,34 @@
-"""Forward-render entry points of the port (`miniraytracer_tpu/models/
+"""Render entry points of the port (`miniraytracer_tpu/models/
 integrator.py`): the bounce in tensor operations (`_shade_and_advance`,
-`trace_paths`), the plain wavefront, the work-queue renderer, the renderer
-pick and `render_auto`.
+`trace_paths`), the AD paths' scans (`sample_radiance`,
+`sample_radiance_packed`), the plain wavefront, the work-queue renderer, the
+progressive renderer (`render`, exported as `render_progressive`), the
+renderer pick and `render_auto`.
 
-Four renderers: the fused render (`ops/bounce.py`), the hybrid step renderer
-(`ops/hybrid.py`), and here the work queue (with its shading in the hybrid
-machinery's step kernel, or in tensor operations) and the plain wavefront,
-whose shading is `_shade_and_advance`: the nearest hit of
+Four forward renderers: the fused render (`ops/bounce.py`), the hybrid step
+renderer (`ops/hybrid.py`), and here the work queue (with its shading in the
+hybrid machinery's step kernel, or in tensor operations) and the plain
+wavefront, whose shading is `_shade_and_advance`: the nearest hit of
 `intersect.scene_hit`, with the sweeps and the turbulence that
-`intersect.make_accel` hands to kernels, then `materials.shade`.
+`intersect.make_accel` hands to kernels, then `materials.shade`. The scans
+run the same bounce under autograd over `make_accel(differentiable=True)`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time as _time
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from miniraytracer_tpu_torch.models import camera as cam_mod
 from miniraytracer_tpu_torch.models import materials as mat_mod
 from miniraytracer_tpu_torch.ops import bounce, hybrid, rng
 from miniraytracer_tpu_torch.ops import intersect as ix
-from miniraytracer_tpu_torch.ops.vecmath import V3, vluminance, vwhere
+from miniraytracer_tpu_torch.ops.vecmath import V3, luminance, vdiv, vluminance, vwhere
 from miniraytracer_tpu_torch.scene import types as T
 from miniraytracer_tpu_torch.utils.device import resolve
 
@@ -90,30 +95,219 @@ def _bounce(scene, state: PathState, depth, max_bounces, accel=None, plain=False
         rays_traced=state.rays_traced + state.alive.sum())
 
 
+def _records_grad(*objs) -> bool:
+    """Whether autograd records and a tensor in `objs` (tuples, dicts and
+    the scene's dataclasses searched) requires a gradient."""
+    if not torch.is_grad_enabled():
+        return False
+    todo = list(objs)
+    while todo:
+        o = todo.pop()
+        if isinstance(o, torch.Tensor):
+            if o.requires_grad:
+                return True
+        elif isinstance(o, (tuple, list)):
+            todo.extend(o)
+        elif isinstance(o, dict):
+            todo.extend(o.values())
+        elif dataclasses.is_dataclass(o):
+            todo.extend(getattr(o, f.name) for f in dataclasses.fields(o))
+    return False
+
+
+def _remat(remat: bool, fn, *args):
+    """fn(*args); with `remat`, under `torch.utils.checkpoint`: the backward
+    runs fn again instead of keeping its intermediates (the JAX package's
+    `jax.checkpoint` of each bounce). The RNG is counter-based, so there is
+    no generator state to restore, and the recompute gives the forward's
+    values: every sweep is deterministic (the clustered triangle sweep's
+    ray sort is a stable argsort)."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
 def trace_paths(scene: T.SceneData, rays0: ix.Rays, keys, max_bounces: int,
                 loop: str = "while", plain=False):
     """Radiance of one path for each primary ray in `rays0`, with `keys` the
     paths' root keys: bounces at depth 0..max_bounces (at max_bounces only
-    emission and the background count) while any path is alive, one read of
-    `any(alive)` by the host a bounce. Returns (radiance V3, rays traced as a
-    0-d int64 tensor). The fixed-length `loop="scan"` of the AD paths is not
-    ported (ROADMAP.md A11)."""
-    if loop != "while":
-        raise NotImplementedError(
-            f"trace_paths(loop={loop!r}): the scan loop of the AD paths is not ported "
-            "yet (ROADMAP.md A11)")
+    emission and the background count). Returns (radiance V3, rays traced as
+    a 0-d int64 tensor).
+
+    `loop="while"` stops when no path is alive, one read of `any(alive)` by
+    the host a bounce. `loop="scan"` is the AD paths' loop: exactly
+    max_bounces + 1 bounces and no host read, over
+    `make_accel(differentiable=True)` (the custom-VJP sweeps), each bounce
+    rematerialised in the backward when a gradient is recorded."""
+    if loop not in ("while", "scan"):
+        raise ValueError(f"loop must be 'while' or 'scan', got {loop!r}")
     n, dev = rays0.time.shape[0], rays0.time.device
     one, zero = torch.ones((n,), device=dev), torch.zeros((n,), device=dev)
     state = PathState(ro=rays0.ro, rd=rays0.rd, time=rays0.time, inside=rays0.inside,
                       beta=V3(one, one, one), radiance=V3(zero, zero, zero),
                       alive=torch.ones((n,), dtype=torch.bool, device=dev), keys=keys,
                       rays_traced=torch.zeros((), dtype=torch.int64, device=dev))
+    if loop == "scan":
+        accel = ix.make_accel(scene, differentiable=True)
+        remat = _records_grad(scene, accel, state)
+        step = lambda sc, acc, s, depth: _bounce(sc, s, depth, max_bounces, acc, plain)
+        for depth in range(max_bounces + 1):
+            state = _remat(remat, step, scene, accel, state, depth)
+        return state.radiance, state.rays_traced
     accel = ix.make_accel(scene)
     depth = 0
     while depth <= max_bounces and bool(state.alive.any()):
         state = _bounce(scene, state, depth, max_bounces, accel, plain)
         depth += 1
     return state.radiance, state.rays_traced
+
+
+def _camera_rays(scene: T.SceneData, pix, samp, off_x, off_y, width: int, height: int):
+    """Camera rays and root keys of the items (pixel `pix`, absolute sample
+    `samp`) at subpixel offsets (off_x, off_y): film coordinates
+    ((x + off_x) / width, (y + off_y) / height), pixel index x + y*width."""
+    x = (pix % width).to(torch.float32)
+    y = torch.div(pix, width, rounding_mode="floor").to(torch.float32)
+    keys = rng.ray_key(pix, samp)
+    return cam_mod.get_rays(scene.camera, vdiv(x + off_x, width),
+                            vdiv(y + off_y, height), keys), keys
+
+
+def sample_radiance(scene: T.SceneData, pix, sample_idx, offset, *, width: int, height: int,
+                    max_bounces: int, loop: str = "while", plain: bool = False):
+    """One radiance sample for each pixel in `pix` ((N,) integer, index
+    x + y*width), sample `sample_idx` (an int or a 0-d tensor) at the
+    subpixel `offset` ((2,) tensor) on the scene's device, through
+    `trace_paths(loop=...)`. Returns (radiance V3, rays traced as a 0-d int64
+    tensor)."""
+    pix = pix.to(torch.int64)
+    samp = torch.as_tensor(sample_idx, device=pix.device).to(torch.int64).expand_as(pix)
+    offset = torch.as_tensor(offset, dtype=torch.float32, device=pix.device)
+    rays, keys = _camera_rays(scene, pix, samp, offset[0], offset[1], width, height)
+    return trace_paths(scene, rays, keys, max_bounces, loop=loop, plain=plain)
+
+
+# ---------------------------------------------------------------------------
+# The packed scan: lanes regenerated onto their next item inside the scan
+# ---------------------------------------------------------------------------
+
+
+class PackedState(NamedTuple):
+    out: torch.Tensor  # (L, pack, 3) each item's radiance, written when it ends
+    count: torch.Tensor  # (L,) i32 items completed = slot of the current item
+    ro: V3
+    rd: V3
+    time: torch.Tensor
+    inside: torch.Tensor
+    beta: V3
+    radiance: V3
+    depth: torch.Tensor  # (L,) i32 bounce depth of the current item
+    alive: torch.Tensor  # (L,) bool: the lane traces a path
+    keys: torch.Tensor
+    rays_traced: torch.Tensor  # () int64
+
+
+def _select_slot(table2d, slot):
+    """(L, pack) table, (L,) slot in [0, pack) -> (L,) row values."""
+    return torch.gather(table2d, 1, slot.to(torch.int64)[:, None])[:, 0]
+
+
+def _write_slot(table, slot, val, mask):
+    """`table` (L, pack, 3) with `val` (L, 3) written into column `slot`
+    (L,) of the rows where `mask`: the JAX package's masked one-hot column
+    update (its TPU form, which scatters nothing) as one broadcast select,
+    with the same values and the same gradient (the cotangent of `val` is
+    that of the written entry, the overwritten entry gets none)."""
+    cols = torch.arange(table.shape[1], device=slot.device)
+    sel = mask[:, None] & (slot[:, None] == cols[None, :])
+    return torch.where(sel[:, :, None], val[:, None, :], table)
+
+
+def sample_radiance_packed(scene: T.SceneData, pix, sample_idx, offset, *, width: int,
+                           height: int, max_bounces: int, pack: int = 8,
+                           scan_steps: int = 0, plain: bool = False):
+    """Differentiable radiance of one sample for each item of `pix` ((I,)
+    integer pixel ids, I a multiple of `pack`), `pack` items assigned to
+    each lane and lanes regenerated inside a scan of fixed length (the JAX
+    package's `sample_radiance_packed`, the unpacked scan's estimator at a
+    fraction of its lanes).
+
+    Lane j owns items [j*pack, (j+1)*pack); when its path ends, the item's
+    radiance goes into slot `count` and the lane claims its next item.
+    Claims are gated to steps t < scan_steps - (max_bounces + 1), so every
+    started item finishes inside the scan: an item is either completed
+    exactly (the same counter-keyed path as the unpacked scan) or never
+    started (`done` False), which depends only on the lane's other items,
+    never on its own value. `scan_steps` 0 takes pack*6 + max_bounces + 1.
+    `sample_idx` is an int, a 0-d or an (I,) tensor; `offset` a (2,) or an
+    (I, 2) tensor. Each step is rematerialised in the backward when a
+    gradient is recorded.
+
+    Returns (radiance V3 (I,), done (I,) bool, rays traced as a 0-d int64
+    tensor)."""
+    n_items = pix.shape[0]
+    if pack < 1 or n_items % pack:
+        raise ValueError(f"{n_items} items are not a multiple of pack={pack}")
+    lanes = n_items // pack
+    if scan_steps <= 0:
+        scan_steps = pack * 6 + max_bounces + 1
+    claim_limit = scan_steps - (max_bounces + 1)
+    if claim_limit < 0:
+        raise ValueError(f"scan_steps={scan_steps} is less than max_bounces + 1")
+    dev = pix.device
+    pix2d = pix.to(torch.int64).reshape(lanes, pack)
+    samp2d = torch.as_tensor(sample_idx, device=dev).to(torch.int64).reshape(-1).expand(
+        n_items).reshape(lanes, pack)
+    off = torch.as_tensor(offset, dtype=torch.float32, device=dev)
+    off = off.expand(n_items, 2) if off.ndim == 1 else off
+    offx2d, offy2d = off[:, 0].reshape(lanes, pack), off[:, 1].reshape(lanes, pack)
+    accel = ix.make_accel(scene, differentiable=True)
+
+    rays0, keys0 = _camera_rays(scene, pix2d[:, 0], samp2d[:, 0], offx2d[:, 0], offy2d[:, 0],
+                                width, height)
+    zero = torch.zeros((lanes,), dtype=torch.float32, device=dev)
+    ones3, zero3 = V3(zero + 1.0, zero + 1.0, zero + 1.0), V3(zero, zero, zero)
+    state = PackedState(
+        out=torch.zeros((lanes, pack, 3), dtype=torch.float32, device=dev),
+        count=torch.zeros((lanes,), dtype=torch.int32, device=dev),
+        ro=rays0.ro, rd=rays0.rd, time=rays0.time, inside=rays0.inside,
+        beta=ones3, radiance=zero3,
+        depth=torch.zeros((lanes,), dtype=torch.int32, device=dev),
+        alive=torch.ones((lanes,), dtype=torch.bool, device=dev), keys=keys0,
+        rays_traced=torch.zeros((), dtype=torch.int64, device=dev))
+
+    def step(scene_, acc, s: PackedState, t: int) -> PackedState:
+        rays = ix.Rays(ro=s.ro, rd=s.rd, time=s.time, inside=s.inside)
+        rec, sc, cont, beta, radiance = _shade_and_advance(
+            scene_, rays, rng.fold(s.keys, s.depth), s.depth < max_bounces, s.alive, s.beta,
+            s.radiance, acc, plain)
+        finished = s.alive & ~cont
+        out = _write_slot(s.out, s.count, radiance.arr, finished)
+        count = torch.where(finished, s.count + 1, s.count)
+        regen = finished & (count < pack) & (t < claim_limit)
+        slot_new = torch.clamp_max(count, pack - 1)
+        new_rays, new_keys = _camera_rays(
+            scene_, _select_slot(pix2d, slot_new), _select_slot(samp2d, slot_new),
+            _select_slot(offx2d, slot_new), _select_slot(offy2d, slot_new), width, height)
+        return PackedState(
+            out=out, count=count,
+            ro=vwhere(regen, new_rays.ro, vwhere(cont, rec.p, s.ro)),
+            rd=vwhere(regen, new_rays.rd, vwhere(cont, sc.new_rd, s.rd)),
+            time=torch.where(regen, new_rays.time, s.time),
+            inside=torch.where(regen, new_rays.inside,
+                               torch.where(cont, sc.new_inside, s.inside)),
+            beta=vwhere(regen, ones3, beta), radiance=vwhere(regen, zero3, radiance),
+            depth=torch.where(regen, 0, s.depth + 1), alive=cont | regen,
+            keys=torch.where(regen, new_keys, s.keys),
+            rays_traced=s.rays_traced + s.alive.sum())
+
+    remat = _records_grad(scene, accel, state)
+    for t in range(scan_steps):
+        state = _remat(remat, step, scene, accel, state, t)
+    out = state.out.reshape(n_items, 3)
+    slot = torch.arange(pack, dtype=torch.int32, device=dev).repeat(lanes)
+    done = slot < torch.repeat_interleave(state.count, pack)
+    return V3(out[:, 0], out[:, 1], out[:, 2]), done, state.rays_traced
 
 
 # ---------------------------------------------------------------------------
@@ -345,6 +539,100 @@ def render_workqueue(scene: T.SceneData, width: int, height: int, spp: int,
         "claimed": stats["claimed"],
         "lanes": lanes,
         "renderer": "workqueue",
+    }
+
+
+# ---------------------------------------------------------------------------
+# The progressive renderer: one sample of every pixel a pass (draw2)
+# ---------------------------------------------------------------------------
+
+
+def merge_pass(frame, color, sample_idx, n_new, max_lum):
+    """Fold `n_new` fresh per-pixel sample averages `color` (N, 3) into the
+    running average `frame` (N, 3) that holds `sample_idx` samples already
+    (draw2, main.cpp:221-229): the incremental average, then the luminance
+    clamp on the running average. `color` must be finite already. The
+    average's weight is computed in float32, as the JAX package does."""
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=frame.device)
+    k, n_new = f32(sample_idx), f32(n_new)
+    # tensor / tensor: torch divides a Python number by a tensor as a
+    # multiplication by the reciprocal, an ulp away from the division
+    new_frame = torch.where(k > 0, frame + (color - frame) * (n_new / (k + n_new)), color)
+    lum = luminance(new_frame)
+    scale = torch.where(lum > max_lum, f32(max_lum) / torch.clamp_min(lum, 1e-12), 1.0)
+    return new_frame * scale[:, None]
+
+
+def render_pixels(scene: T.SceneData, frame, pix, sample_idx, offset, max_lum, *,
+                  width: int, height: int, max_bounces: int, loop: str = "while",
+                  plain: bool = False):
+    """One progressive pass over the pixels `pix`, whose running averages
+    are the rows of `frame` (N, 3): sample `sample_idx` of each at the
+    subpixel `offset` (`sample_radiance`), a non-finite sample replaced by
+    the pixel's previous average (0 for the first sample; main.cpp:214-219),
+    then `merge_pass`. Returns (frame', rays traced as a 0-d int64 tensor)."""
+    radiance_v, rays = sample_radiance(scene, pix, sample_idx, offset, width=width,
+                                       height=height, max_bounces=max_bounces, loop=loop,
+                                       plain=plain)
+    radiance = radiance_v.arr
+    finite = torch.isfinite(radiance).all(dim=-1, keepdim=True)
+    first = torch.as_tensor(sample_idx, device=frame.device) <= 0
+    color = torch.where(finite, radiance, torch.where(first, 0.0, frame))
+    return merge_pass(frame, color, sample_idx, 1.0, max_lum), rays
+
+
+def render_tile_pass(scene: T.SceneData, frame_rows, pix, sample_idx, offset, max_lum, *,
+                     width: int, height: int, max_bounces: int, loop: str = "while",
+                     plain: bool = False):
+    """One progressive pass over one batch of tile pixels (the pass behind
+    the JAX package's CLI preview, which sweeps the frame in Hilbert tile
+    order): `render_pixels` over `pix` and its rows `frame_rows`."""
+    return render_pixels(scene, frame_rows, pix, sample_idx, offset, max_lum, width=width,
+                         height=height, max_bounces=max_bounces, loop=loop, plain=plain)
+
+
+def render_pass(scene: T.SceneData, frame, sample_idx, offset, max_lum, *, width: int,
+                height: int, max_bounces: int, loop: str = "while", plain: bool = False):
+    """One progressive pass over every pixel: `frame` is the (H*W, 3) running
+    average, pixel index x + y*width with y from the bottom (flip the rows
+    for display). Returns (frame', rays traced as a 0-d int64 tensor)."""
+    pix = torch.arange(width * height, dtype=torch.int64, device=frame.device)
+    return render_pixels(scene, frame, pix, sample_idx, offset, max_lum, width=width,
+                         height=height, max_bounces=max_bounces, loop=loop, plain=plain)
+
+
+def render(scene: T.SceneData, width: int, height: int, spp: int, max_bounces: int = 32,
+           max_lum: float = 1000.0, loop: str = "while", device=None, progress=None,
+           plain: bool = False):
+    """The progressive render (exported as `render_progressive`): a host loop
+    of passes of one sample of every pixel (`render_pass`), over the
+    stratified offsets of `sample_offsets(spp)`, on `device` (None means the
+    GPU, and raises when there is none; the scene is moved there).
+    `progress(i, ns, frame)` is called after pass i. The ray counts are
+    summed once at the end, with no read by the host between passes.
+    Returns (frame (H, W, 3) float32 tensor, stats); stats["rays"] is the
+    exact int ray count."""
+    scene = scene.to(resolve(device))
+    dev = scene.device
+    offs, ns = sample_offsets(spp, device=dev)
+    frame = torch.zeros((width * height, 3), dtype=torch.float32, device=dev)
+    ray_counts = []
+    t0 = _time.perf_counter()
+    for i in range(ns):
+        frame, rays = render_pass(scene, frame, i, offs[i], max_lum, width=width,
+                                  height=height, max_bounces=max_bounces, loop=loop,
+                                  plain=plain)
+        ray_counts.append(rays)
+        if progress is not None:
+            progress(i + 1, ns, frame)
+    total = int(torch.stack(ray_counts).sum()) if ray_counts else 0  # waits for the device
+    elapsed = _time.perf_counter() - t0
+    return frame.reshape(height, width, 3), {
+        "seconds": elapsed,
+        "rays": total,
+        "mrays_per_s": total / elapsed / 1e6 if elapsed > 0 else 0.0,
+        "spp": ns,
+        "renderer": "progressive",
     }
 
 

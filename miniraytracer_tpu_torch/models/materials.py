@@ -27,6 +27,7 @@ import torch
 
 from miniraytracer_tpu_torch.models import pdfs
 from miniraytracer_tpu_torch.models.textures import sample_texture
+from miniraytracer_tpu_torch.ops import intersect as ix
 from miniraytracer_tpu_torch.ops import rng
 from miniraytracer_tpu_torch.ops.bounce import fresnel_schlick  # material.h:106-110
 from miniraytracer_tpu_torch.ops.intersect import HitRecord, Rays
@@ -62,7 +63,8 @@ def shade(scene: T.SceneData, rays: Rays, rec: HitRecord, keys, depth_ok, accel=
     max_bounces gate (main.cpp:79). `accel` and `plain` reach the texture
     (`sample_texture`)."""
     mat = rec.mat.long()
-    mtype, mparam, tex_id = scene.mat_type[mat], scene.mat_param[mat], scene.mat_tex[mat]
+    mtype, tex_id = scene.mat_type[mat], scene.mat_tex[mat]
+    mparam = ix.gather(scene.mat_param, mat)  # a train leaf: index_select's gradient
     albedo = sample_texture(scene, tex_id, rec.u, rec.v, rec.p, accel=accel, plain=plain)
     n, rd = rec.n, rays.rd
     zero = torch.zeros_like(rec.t)

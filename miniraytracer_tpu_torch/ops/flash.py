@@ -1094,29 +1094,29 @@ def sphere_hit_d(route, tables, coeffs, ro: V3, rd: V3, time, inside, tmin, plai
     return _SphereHitD.apply(sweep, *coeffs, *ro, *rd, time)
 
 
-def flash_tri_hit_d(coeffs, ro: V3, rd: V3, inside, tmin):
+def flash_tri_hit_d(coeffs, ro: V3, rd: V3, inside, tmin, plain=False):
     """Differentiable `flash_tri_hit` (gradients w.r.t. coeffs and rays)."""
-    return tri_hit_d("tri", coeffs, coeffs, ro, rd, inside, tmin)
+    return tri_hit_d("tri", coeffs, coeffs, ro, rd, inside, tmin, plain=plain)
 
 
-def flash_sphere_hit_d(coeffs, ro: V3, rd: V3, time, inside, tmin):
+def flash_sphere_hit_d(coeffs, ro: V3, rd: V3, time, inside, tmin, plain=False):
     """Differentiable `flash_sphere_hit`."""
-    return sphere_hit_d("sph", coeffs, coeffs, ro, rd, time, inside, tmin)
+    return sphere_hit_d("sph", coeffs, coeffs, ro, rd, time, inside, tmin, plain=plain)
 
 
-def flash_tri_hit_culled_d(cull, coeffs, ro: V3, rd: V3, inside, tmin):
+def flash_tri_hit_culled_d(cull, coeffs, ro: V3, rd: V3, inside, tmin, plain=False):
     """Differentiable closest triangle hit through the clustered sweep of
     `tri_hit_culled_auto` (B10, B11 past `resident_ok`): the same results as
     `flash_tri_hit_d`. The JAX package always takes the streamed kernel here,
     for a memory limit of its core that this card does not have."""
-    return tri_hit_d("tri_cull", cull, coeffs, ro, rd, inside, tmin)
+    return tri_hit_d("tri_cull", cull, coeffs, ro, rd, inside, tmin, plain=plain)
 
 
-def flash_sphere_hit_culled_d(cull, coeffs, ro: V3, rd: V3, time, inside, tmin):
+def flash_sphere_hit_culled_d(cull, coeffs, ro: V3, rd: V3, time, inside, tmin, plain=False):
     """Differentiable closest sphere hit through the clustered sweeps: the
     gated one below 4096 (padded) spheres, else the streamed one."""
     route = "sph_gate" if cull[0][0].shape[0] < 4096 else "sph_cull"
-    return sphere_hit_d(route, cull, coeffs, ro, rd, time, inside, tmin)
+    return sphere_hit_d(route, cull, coeffs, ro, rd, time, inside, tmin, plain=plain)
 
 
 def _box_sweep(blo, bhi, bcs, boff, bact, ro: V3, rd: V3, tmin):

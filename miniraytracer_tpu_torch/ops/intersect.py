@@ -416,16 +416,21 @@ def make_accel(scene: T.SceneData, differentiable: bool = False) -> dict:
     `flash.sph_cull_build` for the gated (B13, 512..4095 spheres) or the
     streamed sweep (B12, more); "perlin", the turbulence tables of
     `noise.noise_tables` (B6), for a scene with Perlin noise that is not
-    `fast_perlin`. Empty for a scene that needs none. `differentiable=True`
-    raises: `scene_hit` does not route through the sweeps' VJP forms
-    (`flash.tri_hit_d`, `sphere_hit_d`, `box_hit_d`) yet, and nothing is swept
-    in their place."""
+    `fast_perlin`. Empty for a scene that needs none.
+
+    `differentiable=True` gives the entries of the AD scans, whose sweeps are
+    the custom-VJP ones of `ops/flash.py`: "tri_d" (64..1023 triangles) and
+    "sph_d" (64..511 spheres), the coefficient tables; "tri_cull_d" (1024 or
+    more) and "sph_cull_d" (512 or more), (the clusters, the coefficient
+    tables). The coefficients are made from the scene's tensors with their
+    autograd history (`sph_c0`, `sph_radius`, `tri_m`), so the gradient of a
+    hit distance reaches them; the clusters are built from a detached copy
+    (they carry no gradient). There is no "perlin" entry: the differentiable
+    turbulence stays in tensor operations, as in the JAX package."""
     from miniraytracer_tpu_torch.ops import flash, noise
 
     if differentiable:
-        raise NotImplementedError(
-            "make_accel(differentiable=True): the eager scene_hit does not route "
-            "through the custom-VJP sweeps yet (ROADMAP.md A11)")
+        return _make_accel_d(scene)
     accel = {}
     if scene.n_tris >= FLASH_CULL_MIN_TRIS:
         accel["tri_cull"] = flash.scene_tri_cull(scene)
@@ -441,6 +446,30 @@ def make_accel(scene: T.SceneData, differentiable: bool = False) -> dict:
             accel["sph_cull"] = flash.sph_cull_build(scene, coeffs)
     if scene.has_perlin and not scene.fast_perlin:
         accel["perlin"] = noise.noise_tables(scene)
+    return accel
+
+
+def _make_accel_d(scene: T.SceneData) -> dict:
+    """`make_accel(scene, differentiable=True)`."""
+    from miniraytracer_tpu_torch.ops import flash
+
+    accel = {}
+    if scene.n_tris >= FLASH_MIN_TRIS:
+        coeffs = flash.scene_tri_coefficients(scene)
+        if scene.n_tris >= FLASH_CULL_MIN_TRIS:
+            with torch.no_grad():
+                cull = flash.scene_tri_cull(scene)
+            accel["tri_cull_d"] = (cull, coeffs)
+        else:
+            accel["tri_d"] = coeffs
+    if scene.n_spheres >= FLASH_MIN_SPHERES:
+        coeffs = flash.sphere_coefficients(scene)
+        if scene.n_spheres >= FLASH_GATE_MIN_SPHERES:
+            with torch.no_grad():
+                cull = flash.sph_cull_build(scene, coeffs)
+            accel["sph_cull_d"] = (cull, coeffs)
+        else:
+            accel["sph_d"] = coeffs
     return accel
 
 
@@ -469,7 +498,13 @@ def scene_hit(scene: T.SceneData, rays: Rays, u_volume=None, tmin=TMIN, accel=No
     accel = accel or {}
     sweep = lambda name: getattr(flash, name + "_plain" if plain else name)
     sph_key = next((k for k in _SPHERE_SWEEPS if k in accel), None)
-    if sph_key:
+    if "sph_d" in accel:
+        t_s, i_s = flash.flash_sphere_hit_d(accel["sph_d"], rays.ro, rays.rd, rays.time,
+                                            rays.inside, tmin, plain=plain)
+    elif "sph_cull_d" in accel:
+        t_s, i_s = flash.flash_sphere_hit_culled_d(*accel["sph_cull_d"], rays.ro, rays.rd,
+                                                   rays.time, rays.inside, tmin, plain=plain)
+    elif sph_key:
         t_s, i_s = sweep(_SPHERE_SWEEPS[sph_key])(
             accel[sph_key], rays.ro, rays.rd, rays.time, rays.inside, tmin)
     else:
@@ -477,7 +512,14 @@ def scene_hit(scene: T.SceneData, rays: Rays, u_volume=None, tmin=TMIN, accel=No
                                 scene.n_spheres, n, dev)
     t_r, i_r = _chunked_min(lambda s, c: rect_ts(scene, rays, s, c, tmin, tmax0),
                             scene.n_rects, n, dev)
-    if "tri" in accel:
+    if "tri_d" in accel:
+        t_t, i_t = flash.flash_tri_hit_d(accel["tri_d"], rays.ro, rays.rd, rays.inside, tmin,
+                                         plain=plain)
+    elif "tri_cull_d" in accel:
+        # unseeded, as in the JAX package: the VJP's t is the triangle's own
+        t_t, i_t = flash.flash_tri_hit_culled_d(*accel["tri_cull_d"], rays.ro, rays.rd,
+                                                rays.inside, tmin, plain=plain)
+    elif "tri" in accel:
         t_t, i_t = sweep("flash_tri_hit")(accel["tri"], rays.ro, rays.rd, rays.inside, tmin)
     elif "tri_cull" in accel:
         # clusters behind the sphere or rect winner are pruned

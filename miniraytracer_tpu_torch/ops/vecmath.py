@@ -118,6 +118,11 @@ def vluminance(c: V3):
     return 0.212655 * c.x + 0.715158 * c.y + 0.072187 * c.z
 
 
+def luminance(c: torch.Tensor) -> torch.Tensor:
+    """`vluminance` of (..., 3) colours."""
+    return vluminance(V3(*c.unbind(-1)))
+
+
 def vonb_from_w(n: V3):
     """Orthonormal basis (u, v, w) from a unit normal w = n (onb.h:19-23)."""
     big_x = torch.abs(n.x) > 0.9

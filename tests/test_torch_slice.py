@@ -350,3 +350,57 @@ def test_ext_train_step_on_cuda_goes_through_the_kernels(tmp_path, monkeypatch, 
     assert all(g.is_cuda and torch.isfinite(g).all() for g in grads)
     chip_smoke.compare_scans(mrt, bounce, bounce_ad, scene.to("cuda"), w, w, 2, bounces, name,
                              use_ext=True)
+
+
+# ---------------------------------------------------------------------------
+# The scans (fused_ad=False) and the progressive renderer on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pack,spp_step", [(1, 1), (8, 2)])
+def test_scan_train_step_on_cuda_goes_through_the_sweeps(pack, spp_step):
+    """`make_train_step(fused_ad=False)` on the card: the dense sphere sweep
+    B8 launches once a scan step and once more in that step's recompute,
+    the gradients are finite, and the loss and every gradient equal those
+    of the same scan through the plain sweeps (`chip_smoke.scan_loss_grads`,
+    phase 31's tolerances)."""
+    _need_cuda()
+    import chip_smoke
+    from miniraytracer_tpu_torch.parallel import train
+
+    scene = mrt.scenes.random_spheres_2(1.0)
+    w, bounces = 16, 4
+    step = mrt.make_train_step(width=w, height=w, max_bounces=bounces, fused_ad=False,
+                               pack=pack, spp_step=spp_step)
+    n0 = flash.sphere_launches
+    _, loss, grads = step(mrt.extract_params(scene), scene, torch.full((w * w, 3), 0.25), 0,
+                          0.0)
+    steps = bounces + 1 if pack == 1 else pack * 6 + bounces + 1
+    assert flash.sphere_launches == n0 + 2 * steps
+    assert loss.is_cuda and torch.isfinite(loss)
+    assert all(g.is_cuda and torch.isfinite(g).all() for g in grads)
+    sc = scene.to("cuda")
+    lk, gk, _ = chip_smoke.scan_loss_grads(mrt, train, sc, w, bounces, pack, spp_step, False)
+    lp, gp, _ = chip_smoke.scan_loss_grads(mrt, train, sc, w, bounces, pack, spp_step, True)
+    assert abs(float(lk) - float(lp)) <= 1e-4 * abs(float(lp))
+    for a, b in zip(gk, gp):
+        scale = max(float(b.abs().max()) if b.numel() else 0.0, 1e-3)
+        assert ((a - b).abs() <= 5e-3 * b.abs() + 5e-4 * scale).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loop", ["while", "scan"])
+def test_render_progressive_on_cuda_matches_plain(loop):
+    """`render_progressive` on the card launches B8 on random_spheres_2 and
+    gives the frame of its plain sweeps."""
+    _need_cuda()
+    scene = mrt.scenes.random_spheres_2(1.0)
+    n0 = flash.sphere_launches
+    frame, st = mrt.render_progressive(scene, 16, 16, 4, max_bounces=4, loop=loop)
+    assert frame.is_cuda and flash.sphere_launches > n0 and torch.isfinite(frame).all()
+    plain, sp = mrt.render_progressive(scene, 16, 16, 4, max_bounces=4, loop=loop,
+                                       plain=True)
+    assert st["rays"] == sp["rays"]
+    close = ((frame - plain).abs() <= 1e-5 * (1 + plain.abs())).all(-1)
+    assert float(close.float().mean()) >= 0.99

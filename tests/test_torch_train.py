@@ -307,8 +307,15 @@ def test_two_steps_lower_the_loss_toward_a_perturbed_albedo():
 
 
 def test_unported_train_paths_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mrt.make_train_step(width=8, height=8, max_bounces=4, device="cpu", fused_ad=False)
+    """Every fused_ad of the JAX package is taken (False is the scans');
+    what none takes raises."""
+    for kw in (dict(fused_ad="xla"), dict(fused_ad=False, pack=0)):
+        with pytest.raises(ValueError):
+            mrt.make_train_step(width=8, height=8, max_bounces=4, device="cpu", **kw)
+    scan = mrt.make_train_step(width=4, height=4, max_bounces=2, device="cpu", fused_ad=False)
+    _, cornell = scene_pair("cornell_box")
+    _, loss, grads = scan(mrt.extract_params(cornell), cornell, torch.zeros((16, 3)), 0, 0.1)
+    assert float(loss) > 0 and all(torch.isfinite(g).all() for g in grads)
     # the hybrid-ext step needs the concrete scene, as in the JAX package
     with pytest.raises(ValueError, match="scene"):
         mrt.make_train_step(width=8, height=8, max_bounces=4, device="cpu", fused_ad="ext")

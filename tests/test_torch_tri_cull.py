@@ -380,8 +380,13 @@ def test_accel_entries_route_to_the_clustered_sweep(mesh_scenes, monkeypatch):
     np.testing.assert_array_equal(orig.numpy(), np.asarray(jorig))
     np.testing.assert_array_equal(bounds.numpy(), np.asarray(jbounds))
     np.testing.assert_array_equal(cl_ord.numpy(), np.asarray(jord))
-    with pytest.raises(NotImplementedError, match="A11"):
-        tix.make_accel(ts, differentiable=True)
+    # the scans' entry: the same clusters, with the coefficients for the VJP
+    dacc, jdacc = tix.make_accel(ts, differentiable=True), jix.make_accel(js, differentiable=True)
+    assert set(dacc) == set(jdacc) == {"tri_cull_d"}
+    (_, dbounds, dorig, _), dcoeffs = dacc["tri_cull_d"]
+    assert torch.equal(dorig, orig) and torch.equal(dbounds, bounds)
+    np.testing.assert_array_equal(dorig.numpy(), np.asarray(jdacc["tri_cull_d"][0][2]))
+    assert len(dcoeffs) == 4 and dcoeffs[0].shape == (ts.n_tris, 16)
 
 
 def _jax_eager(fn, *args, **kw):

@@ -214,8 +214,15 @@ def test_make_accel_equals_jax(monkeypatch, name, keys):
         np.testing.assert_array_equal(
             acc["perlin"].numpy(),
             np.stack([np.concatenate([jtab[16 * r], jtab[16 * r + 8]]) for r in range(6)]))
-    with pytest.raises(NotImplementedError, match="A11"):
-        tix.make_accel(ts, differentiable=True)
+    # the scans' entries: each sweep's differentiable key, no turbulence
+    d_keys = {{"sph": "sph_d", "sph_gate": "sph_cull_d", "sph_cull": "sph_cull_d",
+               "tri": "tri_d"}[k] for k in keys if k != "perlin"}
+    dacc = tix.make_accel(ts, differentiable=True)
+    assert set(dacc) == set(jix.make_accel(js, differentiable=True) or {}) == d_keys
+    for k, kd in (("sph", "sph_d"), ("tri", "tri_d")):
+        if k in acc:
+            for a, b in zip(acc[k], dacc[kd]):
+                assert torch.equal(a, b)
 
 
 def test_fast_perlin_and_small_scenes_reach_the_plain_wavefront():
@@ -244,7 +251,7 @@ def test_fast_perlin_and_small_scenes_reach_the_plain_wavefront():
 def test_trace_paths_equals_eager_jax():
     """One path for each of 128 camera rays of cornell_smoke, bounce by bounce
     at a common depth: radiance within 1e-6, rays EQUAL. The scan loop of the
-    AD paths is not ported and says so."""
+    AD paths gives the same paths."""
     from miniraytracer_tpu.models import camera as jcam
     from miniraytracer_tpu_torch.models import camera as tcam
 
@@ -260,5 +267,8 @@ def test_trace_paths_equals_eager_jax():
     assert n_rays.dtype == torch.int64 and int(n_rays) == int(jn) > 128
     for a, b in zip(rad, jrad):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tinteg.trace_paths(ts, rays, torch.as_tensor(keys), 6, loop="scan")
+    # the AD paths' loop: exactly 7 bounces, the same paths
+    rad_s, n_s = tinteg.trace_paths(ts, rays, torch.as_tensor(keys), 6, loop="scan")
+    assert int(n_s) == int(n_rays)
+    for a, b in zip(rad_s, rad):
+        assert torch.equal(a, b)
