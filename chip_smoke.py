@@ -69,6 +69,18 @@ the ported paths on the card:
   lanes, 129 scan steps) beside `fused_ad="ext"` on the same protocol, the
   fused Cornell step against the packed scan at 500x500, and
   `render_progressive` against the reference renderer's frames.
+- the command line and the BVH (phases 34-35): `python -m
+  miniraytracer_tpu_torch` at the JAX package's default path (the triangles
+  scene with the stand-in meshes, progressive, 500x500, 32 bounces, 4
+  samples, checkpoints) as a subprocess, then `cli.main` in this process
+  with each renderer (auto on the Cornell box through B1, its PNG equal to
+  `save_png(drago(render(...)))`; hybrid on random_spheres; workqueue on
+  book2_final; wavefront on the Cornell box (B1, as the JAX CLI takes its
+  fused kernel there) and on earth (tensor operations); progressive on
+  random_spheres_2) and a resume from
+  the subprocess's pass-2 checkpoint, equal to its straight run to the bit;
+  then the BVH (`ops/bvh.py`) built over the triangles scene and walked on
+  the rays of phase 23's queue step, against B10 and timed beside it.
 
 With a copy of the parent commit's `miniraytracer_tpu_torch/csrc/` in
 `miniraytracer_tpu_torch/_build/parent_csrc/` (git-ignored), the redesigned
@@ -104,6 +116,8 @@ import time
 
 import numpy as np
 import torch
+
+from miniraytracer_tpu_torch.utils.profiling import device_share
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REFERENCE = os.path.join(HERE, "tests", "reference_renders.npz")
@@ -517,6 +531,7 @@ def main() -> None:
     }]
 
     print(f"phases 1-5 took {time.perf_counter() - t_start:.1f} s")
+    tri_step2 = {}
     for name, phases in (
             ("6-7", lambda: train_phases(mrt, bounce, bounce_ad, dev, card_line)),
             ("8-12", lambda: hybrid_phases(mrt, bounce, flash, hybrid, dev, card_line, refs)),
@@ -524,7 +539,8 @@ def main() -> None:
                                            kernel_rows[-1])),
             ("18-22", lambda: eager_phases(mrt, flash, hybrid, noise, dev, card_line, refs,
                                            kernel_rows)),
-            ("23-26", lambda: triangle_phases(mrt, bounce, flash, hybrid, dev, card_line)),
+            ("23-26", lambda: triangle_phases(mrt, bounce, flash, hybrid, dev, card_line,
+                                              keep=tri_step2)),
             ("27", lambda: reference_gate(mrt, dev, refs)),
             ("28-30", lambda: ext_train_phases(mrt, bounce, bounce_ad, flash, hybrid, dev,
                                                card_line))):
@@ -540,6 +556,17 @@ def main() -> None:
         if row["name"] in {name for _, name in SCAN_COUNTERS.values()}:
             row.update({"scan_step_launches": 0, "scan_launches_small": 0,
                         **scan_launches.get(row["name"], {})})
+    t0 = time.perf_counter()
+    cli_launches = cli_phases(mrt, bounce, flash, hybrid, noise, card_line)
+    bvh_walk = bvh_phase(bounce, flash, card_line, tri_step2)
+    print(f"phases 34-35 took {time.perf_counter() - t0:.1f} s")
+    # the command line's launches beside each kernel's row (all its runs of
+    # phase 34), and the BVH walk beside B10's
+    for row in kernel_rows:
+        if row["name"] in KERNEL_COUNTERS:
+            row["cli_launches"] = cli_launches[row["name"]]
+        if row["name"] == "flash_tri_hit_resident":
+            row["bvh_walk"] = bvh_walk
     print(f"all phases took {time.perf_counter() - t_start:.1f} s")
 
     print(card_line)
@@ -547,30 +574,6 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
-
-
-def device_share(fn):
-    """One fn() under torch.profiler (device activity only): (wall ms, device
-    busy ms, {kernel name: (device ms, launches)}). The wall time ends after
-    a synchronize; the profiler itself slows the host, so the idle share it
-    gives is an upper bound. The raw trace events are summed as they are
-    (building the profiler's Python event list takes minutes for a train
-    step's million launches)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-    by_name = {}
-    cuda = torch.autograd.DeviceType.CUDA
-    for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() == cuda:
-            ms, count = by_name.get(ev.name(), (0.0, 0))
-            by_name[ev.name()] = (ms + ev.duration_ns() / 1e6, count + 1)
-    return wall, sum(ms for ms, _ in by_name.values()), by_name
 
 
 def scan_with_grads(mrt, bounce, bounce_ad, scene, w, h, spp, bounces, plain, use_ext=False):
@@ -1931,10 +1934,11 @@ def eager_phases(mrt, flash, hybrid, noise, dev, card_line, refs, rows, size=500
 # ---------------------------------------------------------------------------
 
 
-def triangles_scene(mrt):
-    """The triangles scene with stand-in meshes of the reference's size
-    (`scenes.write_stand_in_meshes`, 11,264 triangles), built with
-    MRT_ASSETS naming a temporary directory for that call only."""
+@contextlib.contextmanager
+def stand_in_assets(mrt):
+    """MRT_ASSETS naming a temporary directory of the stand-in meshes of the
+    reference's size (`scenes.write_stand_in_meshes`, 11,264 triangles) while
+    inside; yields the directory."""
     import tempfile
 
     old = os.environ.get("MRT_ASSETS")
@@ -1942,12 +1946,18 @@ def triangles_scene(mrt):
         mrt.scenes.write_stand_in_meshes(assets)
         os.environ["MRT_ASSETS"] = assets
         try:
-            return mrt.scenes.triangles(1.0)
+            yield assets
         finally:
             if old is None:
                 del os.environ["MRT_ASSETS"]
             else:
                 os.environ["MRT_ASSETS"] = old
+
+
+def triangles_scene(mrt):
+    """The triangles scene with the stand-in meshes."""
+    with stand_in_assets(mrt):
+        return mrt.scenes.triangles(1.0)
 
 
 def compare_tri_clustered(where, flash, cull, coeffs, ro, rd, inside, alive, seed, tmin):
@@ -2001,9 +2011,11 @@ def compare_tri_clustered(where, flash, cull, coeffs, ro, rd, inside, alive, see
 
 
 def triangle_phases(mrt, bounce, flash, hybrid, dev, card_line, size=500, spp=64, bounces=32,
-                    small=64, profile_spp=8, late_step=40):
+                    small=64, profile_spp=8, late_step=40, keep=None):
     """Phases 23 to 26: the clustered triangle sweeps and the triangles
-    scene. Returns the rows of B10, B11 and B9 in the result line."""
+    scene. Returns the rows of B10, B11 and B9 in the result line. `keep`, a
+    dict, receives the scene, its cluster tables and the rays of queue step
+    2 (phase 35 walks the BVH on them)."""
     from miniraytracer_tpu_torch.models import integrator
     from miniraytracer_tpu_torch.ops import intersect as ix
     from miniraytracer_tpu_torch.ops.vecmath import V3
@@ -2042,6 +2054,8 @@ def triangle_phases(mrt, bounce, flash, hybrid, dev, card_line, size=500, spp=64
                                              alive, seed, bounce.TMIN))
         if t == steps_at[0]:
             timed = (ro, rd, inside, alive, seed)
+            if keep is not None:
+                keep.update(scene=scene, cull=cull, rays=(ro, rd, time_, inside, alive))
     del calls
     ro, rd, inside, alive, seed = timed
     n, n_live = alive.numel(), int(alive.sum())
@@ -2825,6 +2839,182 @@ def reference_gate(mrt, dev, refs):
             misses.append(name)
     check(not misses, f"reference parity at 64 spp missed on {misses}")
     return []
+
+
+# ---------------------------------------------------------------------------
+# The command line (phase 34) and the BVH walk (phase 35)
+# ---------------------------------------------------------------------------
+
+# each kernel row's launch counter: (module, attribute)
+KERNEL_COUNTERS = {
+    "fused_render": ("bounce", "launches"), "flash_tri_hit": ("flash", "tri_launches"),
+    "flash_sphere_hit": ("flash", "sphere_launches"),
+    "flash_sphere_hit_gated": ("flash", "gated_launches"),
+    "flash_sphere_hit_streamed": ("flash", "streamed_launches"),
+    "flash_tri_hit_culled": ("flash", "culled_launches"),
+    "flash_tri_hit_resident": ("flash", "resident_launches"),
+    "flash_tri_hit_streamed": ("flash", "tri_streamed_launches"),
+    "hybrid_step": ("hybrid", "step_launches"), "shade_step": ("hybrid", "shade_launches"),
+    "flash_turbulence": ("noise", "launches")}
+
+
+def cli_phases(mrt, bounce, flash, hybrid, noise, card_line, size=500, bounces=32,
+               timeout=600):
+    """Phase 34: `python -m miniraytracer_tpu_torch` at the JAX package's
+    default path (-scene 8, the triangles scene with the stand-in meshes,
+    progressive, 500x500, 32 bounces; 4 samples to keep the time) once as a
+    subprocess, then `cli.main` in this process with each renderer at
+    500x500 and 32 bounces, and a resume from the subprocess's pass-2
+    checkpoint whose frame must equal the subprocess's own to the bit.
+    Returns {kernel row name: launches over the runs in this process}."""
+    import io
+    import shutil
+    import sys
+    import tempfile
+
+    from miniraytracer_tpu_torch import cli
+    from miniraytracer_tpu_torch.utils import checkpoint, tonemap
+    from miniraytracer_tpu_torch.utils.image import read_png, save_png
+
+    mods = {"bounce": bounce, "flash": flash, "hybrid": hybrid, "noise": noise}
+    total = dict.fromkeys(KERNEL_COUNTERS, 0)
+    common = ["-width", str(size), "-height", str(size), "-depth", str(bounces)]
+    print(f"phase 34: the command line at {size}x{size}, {bounces} bounces")
+    with stand_in_assets(mrt) as assets, tempfile.TemporaryDirectory() as tmp:
+        out = lambda name: os.path.join(tmp, name)
+        # the JAX package's defaults but the sample count, as a user runs it;
+        # its pass-2 checkpoint is copied as soon as the line that says it was
+        # written comes (pass 3 takes seconds), for the resume below
+        argv = [sys.executable, "-u", "-m", "miniraytracer_tpu_torch", "-scene", "8", *common,
+                "-samples", "4", "-checkpoint", out("ck"), "-checkpoint-every", "2",
+                "-out", out("sub.png")]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(argv, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True, env=dict(os.environ, MRT_ASSETS=assets))
+        lines = []
+        try:
+            for line in proc.stdout:
+                lines.append(line.rstrip("\n"))
+                if line.startswith("checkpoint -> ") and not os.path.exists(out("ck2.npz")):
+                    shutil.copy(out("ck.npz"), out("ck2.npz"))
+            rc = proc.wait(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        sub_s = time.perf_counter() - t0
+        print("\n".join(f"    | {line}" for line in lines))
+        check(rc == 0, f"python -m miniraytracer_tpu_torch exited {rc}")
+        check(any("Mrays/s" in line and line.startswith("done in") for line in lines),
+              "no Mrays/s line")
+        check(read_png(out("sub.png")).shape == (size, size, 3), "the PNG is not 500x500 RGB")
+        sub_frame, sub_pass, _ = checkpoint.load_checkpoint(out("ck"))
+        check(sub_pass == 4 and checkpoint.load_checkpoint(out("ck2"))[1] == 2,
+              "the checkpoints are not those of passes 4 and 2")
+        print(f"  the subprocess (-scene 8 -samples 4, progressive): exit 0 in {sub_s:.1f} s, its "
+              f"start and the kernels' load included; a {size}x{size} PNG; launches not visible "
+              f"across processes; on {card_line}")
+
+        runs = [("auto", ["-renderer", "auto", "-scene", "5", "-samples", "64"],
+                 ("fused_render",)),
+                ("hybrid", ["-renderer", "hybrid", "-scene", "0", "-samples", "16"],
+                 ("flash_sphere_hit", "hybrid_step")),
+                ("workqueue", ["-renderer", "workqueue", "-scene", "7", "-samples", "16"],
+                 ("flash_sphere_hit_gated", "shade_step")),
+                ("wavefront", ["-renderer", "wavefront", "-scene", "5", "-samples", "4"],
+                 ("fused_render",)),
+                ("wavefront_eager", ["-renderer", "wavefront", "-scene", "4", "-samples", "4"],
+                 ()),
+                ("progressive", ["-scene", "1", "-samples", "4"],
+                 ("flash_sphere_hit", "flash_turbulence")),
+                ("resume", ["-scene", "8", "-samples", "4", "-resume", out("ck2"), "-checkpoint",
+                            out("ck3"), "-checkpoint-every", "2"], ("flash_tri_hit_resident",))]
+        for label, flags, expect in runs:
+            torch.cuda.synchronize()
+            for mod, attr in KERNEL_COUNTERS.values():
+                setattr(mods[mod], attr, 0)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(flags + common + ["-out", out(f"{label}.png")])
+            seconds = time.perf_counter() - t0
+            launched = {name: getattr(mods[mod], attr)
+                        for name, (mod, attr) in KERNEL_COUNTERS.items()}
+            text = buf.getvalue().splitlines()
+            print("\n".join(f"    | {line}" for line in text))
+            done = [line for line in text if line.startswith("done in")]
+            check(rc == 0 and done and "Mrays/s" in done[0], f"{label}: no Mrays/s line")
+            check(all(launched[k] > 0 for k in expect),
+                  f"{label}: launched {launched}, expected {expect}")
+            check(read_png(out(f"{label}.png")).shape == (size, size, 3), f"{label}: the PNG")
+            for k, v in launched.items():
+                total[k] += v
+            print(f"  {label} ({' '.join(flags[:4])}): {seconds:.2f} s in cli.main, "
+                  f"{done[0].split('  ')[1]}, launches "
+                  f"{ {k: v for k, v in launched.items() if v} } on {card_line}")
+
+        # auto is B1: its PNG is save_png(drago(render(...))) of the same frame
+        frame, _ = mrt.render(mrt.scenes.cornell_box(1.0), size, size, 64, max_bounces=bounces)
+        save_png(out("direct.png"), tonemap.drago(frame).cpu().numpy())
+        with open(out("auto.png"), "rb") as a, open(out("direct.png"), "rb") as b:
+            check(a.read() == b.read(), "-renderer auto's PNG differs from save_png(drago(render))")
+        resumed = checkpoint.load_checkpoint(out("ck3"))[0]
+        check(np.array_equal(resumed.view(np.int32), sub_frame.view(np.int32)),
+              "the resumed frame differs from the straight run's")
+        print("  auto's PNG equals save_png(drago(mrt.render(cornell_box, 500, 500, 64))) byte "
+              "for byte; the frame resumed from the subprocess's pass-2 checkpoint equals its "
+              "straight run's to the bit")
+    return total
+
+
+def bvh_phase(bounce, flash, card_line, keep):
+    """Phase 35: the BVH (`ops/bvh.py`) over the triangles scene with the
+    stand-in meshes, on the rays of phase 23's queue step 2: the host build
+    timed, the walk against B10 (unseeded) on the same rays (hit sets equal
+    but for at most 1 ray in 10,000, where a ray grazes a cluster's or a
+    node's box; t within rtol 1e-5 and atol 1e-3 where both hit; the winner
+    equal on 99.9% of the common hits, the rest ties), both timed. Returns
+    the walk's numbers for B10's row."""
+    from miniraytracer_tpu_torch.ops import bvh
+    from miniraytracer_tpu_torch.ops import intersect as ix
+
+    scene, cull = keep["scene"], keep["cull"]
+    ro, rd, time_, inside, alive = keep["rays"]
+    print(f"phase 35: the BVH walk against B10 on the {alive.numel()} rays of the triangles "
+          f"scene's queue step 2 ({scene.n_tris} stand-in triangles)")
+    t0 = time.perf_counter()
+    tree = bvh.build_tri_bvh(scene)
+    build_ms = 1e3 * (time.perf_counter() - t0)
+    rays = ix.Rays(ro=ro, rd=rd, time=time_, inside=inside)
+    walk = lambda st=None: bvh.bvh_tri_hit(tree, scene, rays, stats=st)
+    b10 = lambda: flash.flash_tri_hit_resident(cull, ro, rd, inside, bounce.TMIN)
+    stats, res = {}, []
+    warm_ms = cuda_ms(lambda: res.append(walk(stats)), 1)[0]
+    (t_w, i_w), (t_k, i_k) = res[0], b10()
+    hit_w, hit_k = t_w < 3e38, t_k < 3e38
+    off = hit_w != hit_k
+    both = hit_w & hit_k
+    close = (t_w[both] - t_k[both]).abs() <= 1e-3 + 1e-5 * t_k[both].abs()
+    same = float((i_w[both] == i_k[both]).float().mean())
+    print(f"  build on the host {build_ms:.1f} ms: {tree.bmin.shape[0]} nodes, leaves of "
+          f"{tree.leaf_size}; {int(alive.sum())} rays alive, {int(hit_w.sum())} hits (B10 "
+          f"{int(hit_k.sum())}), {int(off.sum())} differ in hit, max |dt| "
+          f"{float((t_w[both] - t_k[both]).abs().max()):.3g} where both hit, winner equal on "
+          f"{same:.6f} of the common hits")
+    check(float(off.float().mean()) <= 1e-4 and bool(close.all()) and same >= 0.999
+          and not bool(hit_w[~alive].any()), "the BVH walk disagrees with B10")
+    wall, busy, by_name = device_share(walk)
+    launches = sum(count for _, count in by_name.values())
+    walk_ms = cuda_ms(walk, 1)[0]
+    b10_ms = cuda_ms(b10, 3)
+    print(f"  the walk: warm call {warm_ms:.1f} ms, timed call {walk_ms:.1f} ms, {stats['steps']} "
+          f"steps (one host read each), {launches} launches a call (device busy {busy:.1f} ms "
+          f"of {wall:.1f} under the profiler); B10 through its wrapper {b10_ms} ms; on "
+          f"{card_line}")
+    return {"build_host_ms": build_ms, "nodes": tree.bmin.shape[0], "warm_ms": warm_ms,
+            "ms": walk_ms, "steps": stats["steps"], "launches_a_call": launches,
+            "device_busy_ms": busy, "b10_wrapper_ms": statistics.median(b10_ms),
+            "rays": alive.numel(), "hits": int(hit_w.sum()), "hits_differ": int(off.sum())}
 
 
 if __name__ == "__main__":

@@ -31,6 +31,13 @@ VJPs (`intersect.make_accel(differentiable=True)`). `render_progressive` is
 the JAX package's progressive renderer (one sample of every pixel a pass,
 the draw2 average), with the while or the scan loop.
 
+The JAX package's command line is ported with its flags and defaults:
+`python -m miniraytracer_tpu_torch -scene 5 -renderer auto -out o.png`
+(`cli.py`; tone maps, PNG/PPM, checkpoints, the Hilbert tile order of the
+preview and the live view in `utils/`), and so are its triangle BVH
+(`ops/bvh.py`, a component no renderer calls) and its 4x4 helpers
+(`ops/mat4.py`).
+
 The entry points run on the NVIDIA GPU: `device=None` means "cuda", the scene
 is moved there, and with no card the call raises. `device="cpu"` runs the
 plain PyTorch versions of the kernels instead (what the tests do). Functions

@@ -17,6 +17,7 @@ run the same bounce under autograd over `make_accel(differentiable=True)`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time as _time
 from typing import NamedTuple
@@ -349,10 +350,13 @@ def render_wavefront_pixels(scene: T.SceneData, pix, sample_lo: int, n_samples: 
 
 
 def render_wavefront(scene: T.SceneData, width: int, height: int, spp: int,
-                     max_bounces: int = 32, max_lum: float = 1000.0, plain: bool = False):
-    """Full-frame plain-wavefront render on the scene's device. Returns
-    (frame (H,W,3) f32 tensor, stats); stats["rays"] is the exact int ray
-    count, stats["steps"] the number of wave steps."""
+                     max_bounces: int = 32, max_lum: float = 1000.0, plain: bool = False,
+                     device=None):
+    """Full-frame plain-wavefront render on `device` (None means the GPU, and
+    raises when there is none; the scene is moved there). Returns (frame
+    (H,W,3) f32 tensor, stats); stats["rays"] is the exact int ray count,
+    stats["steps"] the number of wave steps."""
+    scene = scene.to(resolve(device))
     sq = int(math.isqrt(spp))
     ns = sq * sq
     t0 = _time.perf_counter()
@@ -502,8 +506,9 @@ def wq_auto_lanes(scene: T.SceneData, n_pix: int) -> int:
 
 def render_workqueue(scene: T.SceneData, width: int, height: int, spp: int,
                      max_bounces: int = 32, max_lum: float = 1000.0, n_lanes: int = 0,
-                     chunk: int = 0, fused_shade="auto", plain: bool = False):
-    """Whole-frame work-queue render on the scene's device. `n_lanes` = 0
+                     chunk: int = 0, fused_shade="auto", plain: bool = False, device=None):
+    """Whole-frame work-queue render on `device` (None means the GPU, and
+    raises when there is none; the scene is moved there). `n_lanes` = 0
     takes `wq_auto_lanes`. `chunk` > 0 renders the samples in blocks of that
     many, one queue each, merged at the end: stratification spans the full
     spp, so the estimator is that of the one-shot render up to the order of
@@ -511,6 +516,7 @@ def render_workqueue(scene: T.SceneData, width: int, height: int, spp: int,
     `hybrid.prefer_hybrid` (see `render_workqueue_pixels`). Returns (frame (H,W,3) f32 tensor, stats);
     stats["rays"] is the exact int ray count, stats["steps"] the number of
     queue steps, stats["claimed"] the items handed out."""
+    scene = scene.to(resolve(device))
     if fused_shade == "auto":
         fused_shade = hybrid.prefer_hybrid(scene)
     sq = int(math.isqrt(spp))
@@ -664,8 +670,9 @@ def render_auto(scene, width, height, spp, max_bounces=32, max_lum=1000.0,
     """Render with the picked forward renderer on `device`: None means the
     GPU (raises when there is none), and the scene is moved there. Returns
     (frame (H,W,3) float32 tensor on that device, stats)."""
+    dev = resolve(device)
     render = {"fused": bounce.render_wavefront_fused,
               "hybrid": hybrid.render_wavefront_hybrid,
-              "workqueue": render_workqueue,
-              "wavefront": render_wavefront}[pick_renderer(scene)]
-    return render(scene.to(resolve(device)), width, height, spp, max_bounces, max_lum)
+              "workqueue": functools.partial(render_workqueue, device=dev),
+              "wavefront": functools.partial(render_wavefront, device=dev)}[pick_renderer(scene)]
+    return render(scene.to(dev), width, height, spp, max_bounces, max_lum)

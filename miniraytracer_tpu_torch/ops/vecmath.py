@@ -123,6 +123,82 @@ def luminance(c: torch.Tensor) -> torch.Tensor:
     return vluminance(V3(*c.unbind(-1)))
 
 
+# ---------------------------------------------------------------------------
+# The (..., 3) tensor forms of `miniraytracer_tpu/ops/vecmath.py:185-284`,
+# over the last axis: the display path (`gamma_correct`, `argb32`) and the
+# user-facing vector math.
+# ---------------------------------------------------------------------------
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dot product over the last axis -> (...)."""
+    return torch.sum(a * b, dim=-1)
+
+
+def sdot(a: torch.Tensor) -> torch.Tensor:
+    """Squared length (reference `sdot`)."""
+    return torch.sum(a * a, dim=-1)
+
+
+def length(a: torch.Tensor) -> torch.Tensor:
+    return vsqrt(sdot(a))
+
+
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def normalize(a: torch.Tensor) -> torch.Tensor:
+    """Normalize over the last axis; a zero vector stays zero."""
+    n2 = sdot(a)
+    ok = n2 > 0
+    inv = torch.where(ok, 1.0 / vsqrt(torch.where(ok, n2, 1.0)), 0.0)
+    return a * inv[..., None]
+
+
+def reflect(v: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Mirror reflection (vec3.h:178-181): v - 2*dot(v,n)*n."""
+    return v - (2.0 * dot(v, n))[..., None] * n
+
+
+def refract(v: torch.Tensor, n: torch.Tensor, ni_over_nt: torch.Tensor):
+    """Snell refraction (vec3.h:185-198) of the unit direction `v` through
+    the facing normal `n` -> (refracted, ok); `ok` is False on total internal
+    reflection, where `refracted` is finite but meaningless. Not normalized,
+    as in the reference."""
+    ncos_i = dot(v, n)
+    sin_t2 = (ni_over_nt * ni_over_nt) * (1.0 - ncos_i * ncos_i)
+    cos_t = vsqrt(torch.clamp_min(1.0 - sin_t2, 0.0))
+    refracted = ni_over_nt[..., None] * v + (ni_over_nt * -ncos_i - cos_t)[..., None] * n
+    return refracted, sin_t2 <= 1.0
+
+
+def gamma_correct(c: torch.Tensor) -> torch.Tensor:
+    """sqrt gamma (vec3.h gamma_correct)."""
+    return vsqrt(torch.clamp_min(c, 0.0))
+
+
+def argb32(c: torch.Tensor) -> torch.Tensor:
+    """Float RGB in [0,1] packed as uint32 0xAARRGGBB (vec3.h:327-333): each
+    channel clamped to 1 and scaled by 255.99. Packed in int64, since torch's
+    uint32 has no shifts or ORs; the final cast keeps the bits."""
+    v = (torch.clamp(c, 0.0, 1.0) * 255.99).to(torch.int64)
+    return ((0xFF << 24) | (v[..., 0] << 16) | (v[..., 1] << 8) | v[..., 2]).to(torch.uint32)
+
+
+def onb_from_w(n: torch.Tensor):
+    """Orthonormal basis (u, v, w) from a unit normal w = n (onb.h:19-23)."""
+    big_x = (torch.abs(n[..., 0]) > 0.9)[..., None]
+    a = torch.where(big_x, n.new_tensor([0.0, 1.0, 0.0]), n.new_tensor([1.0, 0.0, 0.0]))
+    v = normalize(cross(n, a))
+    return cross(n, v), v, n
+
+
+def onb_local_to_world(u, v, w, vec):
+    """onb * vec (onb.h:25-27): vec.x*u + vec.y*v + vec.z*w."""
+    return vec[..., 0:1] * u + vec[..., 1:2] * v + vec[..., 2:3] * w
+
+
 def vonb_from_w(n: V3):
     """Orthonormal basis (u, v, w) from a unit normal w = n (onb.h:19-23)."""
     big_x = torch.abs(n.x) > 0.9

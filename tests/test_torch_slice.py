@@ -49,7 +49,7 @@ def test_pick_renderer_raises_outside_fused_class():
     frame, stats = mrt.render(scene, 8, 8, 1, max_bounces=3, device="cpu")
     assert stats["renderer"] == "workqueue" and torch.isfinite(frame).all()
     with pytest.raises(ValueError, match="hybrid class"):
-        mrt.render_workqueue(scene, 8, 8, 1, fused_shade=True)
+        mrt.render_workqueue(scene, 8, 8, 1, fused_shade=True, device="cpu")
     pix = torch.arange(64, dtype=torch.int32)
     with pytest.raises(ValueError, match="fused class"):
         bounce.render_wavefront_fused_pixels(
@@ -271,6 +271,21 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one():
         mrt.render(scene, 8, 8, 1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mrt.make_train_step(width=8, height=8, max_bounces=4)
+
+
+def test_wavefront_and_workqueue_default_to_the_gpu():
+    """`render_wavefront` and `render_workqueue` once ran quietly on the CPU
+    for a CPU scene (every scene generator builds one): they run on the GPU
+    unless asked for the CPU, like `render`."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    scene = mrt.scenes.two_spheres(1.0)
+    for render in (mrt.render_wavefront, mrt.render_workqueue):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            render(scene, 8, 8, 1, max_bounces=2)
+        frame, stats = render(scene, 8, 8, 1, max_bounces=2, device="cpu")
+        assert frame.shape == (8, 8, 3) and frame.device.type == "cpu"
+        assert torch.isfinite(frame).all() and stats["rays"] >= 64
 
 
 @pytest.mark.cuda

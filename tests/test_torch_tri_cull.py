@@ -429,7 +429,8 @@ def test_eager_queue_and_wavefront_equal_eager_jax(mesh_scenes):
     (a, c, r), steps_j = _jax_eager(jinteg.render_wavefront_pixels, js,
                                     jnp.arange(W * H, dtype=jnp.uint32), offs, jnp.int32(0),
                                     jnp.int32(SPP), jnp.float32(1000.0), **kw)
-    frame, st = tinteg.render_wavefront(ts, W, H, SPP, max_bounces=BOUNCES)
+    frame, st = tinteg.render_wavefront(ts, W, H, SPP, max_bounces=BOUNCES,
+                                        device="cpu")
     assert st["steps"] == steps_j and st["rays"] == int(r)
     fj = np.asarray((a * (1.0 / jnp.maximum(c.astype(jnp.float32), 1.0))).arr)
     np.testing.assert_allclose(frame.numpy().reshape(-1, 3), fj, atol=1e-5)

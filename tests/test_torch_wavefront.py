@@ -125,7 +125,8 @@ def test_wavefront_equals_eager_jax(jax_rs2, monkeypatch):
     _without_dense_spheres(monkeypatch)
     ts = tscenes.random_spheres_2(1.0)
     fj, cj, rj, steps_j = jax_rs2["wavefront"]
-    frame, stats = tinteg.render_wavefront(ts, W, H, SPP, max_bounces=BOUNCES)
+    frame, stats = tinteg.render_wavefront(ts, W, H, SPP, max_bounces=BOUNCES,
+                                           device="cpu")
     assert stats["renderer"] == "wavefront" and stats["steps"] == steps_j
     assert stats["rays"] == rj
     np.testing.assert_allclose(frame.numpy().reshape(-1, 3), fj, atol=1e-6)
@@ -159,7 +160,8 @@ def test_render_routes_random_spheres_2_to_the_eager_queue(jax_rs2):
     assert np.isfinite(ft).all()
     np.testing.assert_allclose(ft.mean(0), fj.mean(0), rtol=0.02)
     # the same render through the wavefront and with plain=True
-    f2, s2 = mrt.render_wavefront(ts, W, H, SPP, max_bounces=BOUNCES, plain=True)
+    f2, s2 = mrt.render_wavefront(ts, W, H, SPP, max_bounces=BOUNCES, plain=True,
+                                  device="cpu")
     assert abs(s2["rays"] - rj) <= 0.01 * rj
     np.testing.assert_allclose(f2.numpy().reshape(-1, 3).mean(0), fj.mean(0), rtol=0.02)
 
@@ -169,7 +171,7 @@ def test_wavefront_matches_golden(name):
     with np.load(os.path.join(os.path.dirname(__file__), "golden_renders.npz")) as z:
         golden = z[name]
     frame, stats = mrt.render_wavefront(getattr(tscenes, name)(1.0), G_SIZE, G_SIZE, G_SPP,
-                                        max_bounces=G_BOUNCES)
+                                        max_bounces=G_BOUNCES, device="cpu")
     ft = frame.numpy()
     assert np.isfinite(ft).all() and stats["rays"] > G_SIZE * G_SIZE * G_SPP
     close = np.isclose(ft, golden, rtol=2e-4, atol=2e-5).all(axis=-1)

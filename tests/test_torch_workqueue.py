@@ -420,9 +420,10 @@ def test_workqueue_matches_jax_fused_shade_interpret():
                                atol=1e-6)
 
     # sample blocks of 1 through the public entry point
-    f1, s1 = mrt.render_workqueue(ts, w, h, ns, max_bounces=8, max_lum=1e9, n_lanes=n_pix)
+    f1, s1 = mrt.render_workqueue(ts, w, h, ns, max_bounces=8, max_lum=1e9, n_lanes=n_pix,
+                                  device="cpu")
     f3, s3 = mrt.render_workqueue(ts, w, h, ns, max_bounces=8, max_lum=1e9, n_lanes=n_pix,
-                                  chunk=1)
+                                  chunk=1, device="cpu")
     assert s1["rays"] == s3["rays"] == int(r) and s3["steps"] > s1["steps"]
     assert s1["renderer"] == "workqueue" and s1["lanes"] == n_pix
     np.testing.assert_allclose(f1.numpy().reshape(-1, 3), ft, rtol=1e-5, atol=1e-6)
