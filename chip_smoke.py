@@ -110,8 +110,11 @@ import ctypes
 import dataclasses
 import json
 import os
+import socket
 import statistics
 import subprocess
+import sys
+import tempfile
 import time
 
 import numpy as np
@@ -567,6 +570,13 @@ def main() -> None:
             row["cli_launches"] = cli_launches[row["name"]]
         if row["name"] == "flash_tri_hit_resident":
             row["bvh_walk"] = bvh_walk
+    t0 = time.perf_counter()
+    mesh_launches = mesh_phases(mrt, card_line)
+    print(f"phases 36-37 took {time.perf_counter() - t0:.1f} s")
+    # the mesh runs' launches (phase 36 and every rank of phase 37) beside
+    # each kernel's row
+    for row in kernel_rows:
+        row["mesh_launches"] = mesh_launches.get(row["name"], 0)
     print(f"all phases took {time.perf_counter() - t_start:.1f} s")
 
     print(card_line)
@@ -778,6 +788,17 @@ def launch_states(mrt, bounce, bounce_ad, scene, w, h, spp, bounces, plain):
     return meta, cfg, outer, tables, pix, sb, state, residual
 
 
+def cornell_target(mrt, scene, w, bounces):
+    """The train steps' target: the box with other wall albedos (red, white,
+    green) rendered at w x w, 64 spp, as (w*w, 3) rows."""
+    c0 = scene.tex_c0.clone()
+    c0[0] = torch.tensor([0.45, 0.15, 0.10])
+    c0[1] = torch.tensor([0.55, 0.55, 0.55])
+    c0[2] = torch.tensor([0.20, 0.30, 0.25])
+    target, _ = mrt.render(dataclasses.replace(scene, tex_c0=c0), w, w, 64, max_bounces=bounces)
+    return target.reshape(-1, 3)
+
+
 def train_phases(mrt, bounce, bounce_ad, dev, card_line):
     """Phases 6 and 7: the AD step kernels and the train step. Returns the
     two kernels' rows of the result line."""
@@ -821,13 +842,7 @@ def train_phases(mrt, bounce, bounce_ad, dev, card_line):
           f"{total / 1e9:.1f} GB")
     check(res_bytes < 0.5 * free, "not enough free device memory for the residual")
     scene = mrt.scenes.cornell_box(1.0)
-    # target: the same box with other wall albedos (red, white, green)
-    c0 = scene.tex_c0.clone()
-    c0[0] = torch.tensor([0.45, 0.15, 0.10])
-    c0[1] = torch.tensor([0.55, 0.55, 0.55])
-    c0[2] = torch.tensor([0.20, 0.30, 0.25])
-    target, _ = mrt.render(dataclasses.replace(scene, tex_c0=c0), w, h, 64, max_bounces=bounces)
-    target = target.reshape(-1, 3)
+    target = cornell_target(mrt, scene, w, bounces)
     step = mrt.make_train_step(width=w, height=h, max_bounces=bounces, spp_step=spp_step)
     params0 = params = mrt.extract_params(scene)
     torch.cuda.synchronize()
@@ -3017,5 +3032,305 @@ def bvh_phase(bounce, flash, card_line, keep):
             "rays": alive.numel(), "hits": int(hit_w.sum()), "hits_differ": int(off.sum())}
 
 
+# ---------------------------------------------------------------------------
+# The device-parallel layer (phases 36-37)
+# ---------------------------------------------------------------------------
+
+# the counters of every kernel row the mesh runs reach
+MESH_COUNTERS = {**KERNEL_COUNTERS, "ad_step_fwd": ("bounce_ad", "fwd_launches"),
+                 "ad_step_bwd": ("bounce_ad", "bwd_launches")}
+# what each run must launch on every rank: B1; B2 and B3; B13 and B6
+MESH_EXPECT = {"wavefront": ("fused_render",), "progressive": (),
+               "workqueue": ("flash_sphere_hit_gated", "flash_turbulence"),
+               "train": ("ad_step_fwd", "ad_step_bwd")}
+MESH_SIZE, MESH_BOUNCES = 500, 32
+
+
+def mesh_counted(fn):
+    """fn() with every kernel's launch count set to 0 just before and read
+    just after: (its result, wall seconds to the device's end, {row name:
+    launches})."""
+    from miniraytracer_tpu_torch.ops import bounce, bounce_ad, flash, hybrid, noise
+
+    mods = {"bounce": bounce, "bounce_ad": bounce_ad, "flash": flash, "hybrid": hybrid,
+            "noise": noise}
+    torch.cuda.synchronize()
+    for mod, attr in MESH_COUNTERS.values():
+        setattr(mods[mod], attr, 0)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, seconds, {name: getattr(mods[mod], attr)
+                          for name, (mod, attr) in MESH_COUNTERS.items()}
+
+
+def mesh_scan_steps():
+    """The scan length of phase 37's train steps: twice the default of a
+    128-sample step (`scan_plan(128, 32)`, 801 sub-steps). The scan claims
+    samples only before a gate that scales with spp_step, so the default
+    scans drop a few samples (1,092 of 32,000,000 at 128 a pixel, more at 64
+    a cell), a different few for each split; in this scan every sample
+    completes, and the meshes and the one device train on the same set."""
+    from miniraytracer_tpu_torch.ops import bounce_ad
+
+    return 2 * bounce_ad.scan_plan(128, MESH_BOUNCES)[0]
+
+
+def mesh_workloads(mrt, render, mesh, target, stats):
+    """The runs of phase 37 on `mesh`, by name: the Cornell wavefront through
+    B1 at 500x500x64x32, the progressive render of two_spheres at 500x500x4,
+    the work queue of book2_final at 500x500x4x32 (B13, B6) and the Cornell
+    train step at 500x500x32 (B2, B3) from the scene's params against
+    `target`, 128 // n_sp samples a cell in a scan of `mesh_scan_steps()`,
+    its "rays" and "done" into `stats`."""
+    n, b = MESH_SIZE, MESH_BOUNCES
+    cornell = mrt.scenes.cornell_box(1.0)
+    step = mrt.make_train_step(width=n, height=n, max_bounces=b, spp_step=128 // mesh.n_sp,
+                               scan_steps=mesh_scan_steps(), mesh=mesh)
+    return {
+        "wavefront": lambda: render.render_wavefront_distributed(cornell, n, n, 64, mesh,
+                                                                 max_bounces=b),
+        "progressive": lambda: render.render_distributed(mrt.scenes.two_spheres(1.0), n, n, 4,
+                                                         mesh, max_bounces=b),
+        "workqueue": lambda: render.render_workqueue_distributed(mrt.scenes.book2_final(1.0), n,
+                                                                 n, 4, mesh, max_bounces=b),
+        "train": lambda: step(mrt.extract_params(cornell), cornell, target, 0, 0.5,
+                              stats=stats)}
+
+
+def mesh_rank(rank, world, port, n_dp, n_sp, tmp):
+    """One rank of a phase-37 mesh: a gloo group of `world` ranks, every one on
+    cuda:0; runs `mesh_workloads` and saves what each returned."""
+    t0 = time.perf_counter()
+    import miniraytracer_tpu_torch as mrt
+    from miniraytracer_tpu_torch.parallel import mesh as M
+    from miniraytracer_tpu_torch.parallel import render
+
+    mesh = M.init_distributed(f"localhost:{port}", world, rank, backend="gloo", device="cuda:0",
+                              timeout=600)
+    if (mesh.n_dp, mesh.n_sp) != (n_dp, n_sp):
+        mesh = M.make_mesh(n_dp, n_sp, device="cuda:0")
+    # gloo's all_reduce on CUDA tensors, as every sum of the mesh is one
+    f = torch.full((3,), rank + 1.0, device=mesh.device)
+    i = torch.full((3,), rank + 1, dtype=torch.int64, device=mesh.device)
+    mesh.all_reduce(f, "world")
+    mesh.all_reduce(i, "world")
+    want = world * (world + 1) // 2
+    check(f.is_cuda and i.is_cuda and bool((f == want).all()) and bool((i == want).all()),
+          f"rank {rank}: gloo's all_reduce on CUDA tensors gave {f.tolist()}, {i.tolist()}")
+    print(f"rank {rank} of {world}, cell ({mesh.dp_index}, {mesh.sp_index}) on {mesh.device}: "
+          f"gloo all_reduce of CUDA float32 and int64 tensors sums to {want}; joined in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    target = torch.load(os.path.join(tmp, "target.pt")).to(mesh.device)
+    results, stats = {}, {}
+    for name, fn in mesh_workloads(mrt, render, mesh, target, stats).items():
+        out, seconds, launched = mesh_counted(fn)
+        if name == "train":
+            new, loss, grads = out
+            out = {"loss": float(loss), "grads": [g.cpu() for g in grads],
+                   "done": int(stats["done"]), "rays": int(stats["rays"])}
+        else:
+            out = {"frame": out[0].cpu(), "rays": out[1]["rays"]}
+        results[name] = dict(out, seconds=seconds, launches=launched)
+        print(f"rank {rank}: {name} {seconds:.2f} s, launches "
+              f"{ {k: v for k, v in launched.items() if v} }", flush=True)
+    torch.save(results, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_mesh(shape, tmp, timeout=420):
+    """Phase 37's ranks of `shape` started side by side, each a process of
+    this script on cuda:0; waits for all (every one killed past `timeout`
+    seconds or when one fails) and returns their saved results."""
+    n_dp, n_sp = shape
+    world, port = n_dp * n_sp, free_port()
+    logs = [os.path.join(tmp, f"log{n_dp}x{n_sp}_{r}") for r in range(world)]
+    procs = []
+    try:
+        for r, log in enumerate(logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-u", os.path.abspath(__file__), "--mesh-rank", str(r),
+                     str(world), str(port), str(n_dp), str(n_sp), tmp],
+                    cwd=HERE, stdout=f, stderr=subprocess.STDOUT))
+        deadline = time.perf_counter() + timeout
+        while any(p.poll() is None for p in procs) and time.perf_counter() < deadline:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break  # one failed: the others would wait on it
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for r, log in enumerate(logs):
+        with open(log) as f:
+            print("\n".join(f"    [{n_dp}x{n_sp} rank {r}] {line}"
+                            for line in f.read().splitlines()[-40:]))
+    check(all(p.returncode == 0 for p in procs),
+          f"mesh {shape}: ranks exited {[p.returncode for p in procs]}")
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(world)]
+
+
+def close_frames(what, got, ref, exact):
+    """`got` against the single-device frame `ref`: bit for bit where
+    `exact`, else within 5e-6 + 1e-5 of each value (the sp sum adds the
+    blocks' running averages in another order than one device's average of
+    all the samples: a few ulp of a pixel's value). Returns the max abs
+    error."""
+    err = float((got - ref).abs().max())
+    ok = torch.equal(got, ref) if exact else bool(torch.allclose(got, ref, rtol=1e-5,
+                                                                 atol=5e-6))
+    check(ok, f"{what}: max abs err {err} against the single device "
+              f"({'bit for bit' if exact else 'rtol 1e-5, atol 5e-6'})")
+    return err
+
+
+def close_steps(what, loss, grads, ref_loss, ref_grads):
+    """A mesh step's loss (rtol 1e-5) and TrainParams gradients (rtol 2e-3,
+    atol 2e-4 of the leaf's largest: tests/test_torch_train.py) against the
+    single-device step's. Returns the loss's relative error."""
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    check(rel <= 1e-5, f"{what}: loss {loss} against {ref_loss}")
+    for name, g, r in zip(("tex_c0", "tex_c1", "mat_param", "sph_c0", "sph_radius", "tri_m"),
+                          grads, ref_grads):
+        g, r = g.cpu(), r.cpu()
+        scale = max(float(r.abs().max()) if r.numel() else 0.0, 1e-3)
+        check(bool(torch.isfinite(g).all()) and bool(torch.allclose(g, r, rtol=2e-3,
+                                                                    atol=2e-4 * scale)),
+              f"{what}: grads.{name} differ from the single device's")
+    return rel
+
+
+def mesh_phases(mrt, card_line):
+    """Phases 36-37: the device-parallel layer (`parallel/`) on the card.
+    36: an NCCL world of one on cuda:0, in this process: the Cornell
+    wavefront at 500x500x64x32 through B1 equal to `render`'s frame and rays
+    bit for bit, and the mesh train step at 500x500x32, spp_step 128, against
+    the single-device step. 37: gloo meshes (2, 1) and (2, 2), every rank a
+    process on cuda:0 (the ranks time-share the one card): `mesh_workloads`,
+    each held against the single-device result. Returns {row name: launches}
+    summed over phase 36 and every rank."""
+    import torch.distributed as dist
+
+    from miniraytracer_tpu_torch.parallel import mesh as M
+    from miniraytracer_tpu_torch.parallel import render
+
+    n, b = MESH_SIZE, MESH_BOUNCES
+    total = dict.fromkeys(MESH_COUNTERS, 0)
+    cornell = mrt.scenes.cornell_box(1.0)
+    params = mrt.extract_params(cornell)
+    target = cornell_target(mrt, cornell, n, b)
+    t0 = time.perf_counter()
+    ref = {"wavefront": mrt.render(cornell, n, n, 64, max_bounces=b),
+           "progressive": mrt.render_progressive(mrt.scenes.two_spheres(1.0), n, n, 4,
+                                                 max_bounces=b),
+           "workqueue": mrt.render_workqueue(mrt.scenes.book2_final(1.0), n, n, 4,
+                                             max_bounces=b, fused_shade=False)}
+    single = mrt.make_train_step(width=n, height=n, max_bounces=b, spp_step=128)
+    ref_stats = {}
+    _, ref_loss, ref_grads = single(params, cornell, target, 0, 0.5, stats=ref_stats)
+    ref_loss, ref_done = float(ref_loss), int(ref_stats["done"])
+    single = mrt.make_train_step(width=n, height=n, max_bounces=b, spp_step=128,
+                                 scan_steps=mesh_scan_steps())
+    long_stats = {}
+    _, long_loss, long_grads = single(params, cornell, target, 0, 0.5, stats=long_stats)
+    long_loss, long_done = float(long_loss), int(long_stats["done"])
+    check(long_done == n * n * 128, f"the {mesh_scan_steps()}-sub-step scan completed "
+                                    f"{long_done} of {n * n * 128} samples")
+    torch.cuda.synchronize()
+    print(f"  single-device references (phases 5 and 7's Cornell frame and step, two_spheres "
+          f"progressive 500x500x4, book2_final queue 500x500x4 in tensor shading) took "
+          f"{time.perf_counter() - t0:.1f} s; the step completed {ref_done} of {n * n * 128} "
+          f"samples in its default scan, all in one of {mesh_scan_steps()} sub-steps (loss "
+          f"{long_loss})")
+
+    print(f"phase 36: an NCCL world of one on cuda:0: render_wavefront_distributed(cornell_box, "
+          f"{n}, {n}, 64, {b} bounces) and the mesh train step ({n}x{n}, {b} bounces, "
+          "spp_step 128)")
+    mesh = M.init_distributed(f"localhost:{free_port()}", 1, 0, backend="nccl",
+                              device="cuda:0", timeout=300)
+    try:
+        check(dist.get_backend() == "nccl" and mesh.distributed and mesh.size == 1,
+              f"not an NCCL world of one: {dist.get_backend()}, {mesh}")
+        (frame, stats), s_wf, c_wf = mesh_counted(
+            lambda: render.render_wavefront_distributed(cornell, n, n, 64, mesh, max_bounces=b))
+        close_frames("phase 36 wavefront", frame, ref["wavefront"][0], exact=True)
+        check(stats["rays"] == ref["wavefront"][1]["rays"] and c_wf["fused_render"] > 0,
+              f"phase 36 wavefront: rays {stats['rays']}, launches {c_wf}")
+        step = mrt.make_train_step(width=n, height=n, max_bounces=b, spp_step=128, mesh=mesh)
+        st = {}
+        (_, loss, grads), s_tr, c_tr = mesh_counted(
+            lambda: step(params, cornell, target, 0, 0.5, stats=st))
+        rel = close_steps("phase 36 train step", float(loss), grads, ref_loss, ref_grads)
+        check(int(st["done"]) == ref_done, f"phase 36 train: {int(st['done'])} samples done, "
+                                           f"the single device {ref_done}")
+        check(c_tr["ad_step_fwd"] > 0 and c_tr["ad_step_bwd"] > 0, f"phase 36 train: {c_tr}")
+    finally:
+        dist.destroy_process_group()
+    for counts in (c_wf, c_tr):
+        for k, v in counts.items():
+            total[k] += v
+    print(f"  wavefront: frame and {stats['rays']} rays equal to render()'s bit for bit, "
+          f"{s_wf:.3f} s, B1 launches {c_wf['fused_render']}; train step: loss {float(loss)} "
+          f"(rel err {rel:.2e} against the single device's {ref_loss}), gradients within "
+          f"rtol 2e-3 / atol 2e-4 of scale, {s_tr:.3f} s, B2/B3 launches {c_tr['ad_step_fwd']}/"
+          f"{c_tr['ad_step_bwd']}; on {card_line}")
+
+    print(f"phase 37: gloo meshes (2, 1) and (2, 2), every rank a process on cuda:0 (the ranks "
+          f"time-share one GPU): wavefront cornell_box {n}x{n}x64, progressive two_spheres "
+          f"{n}x{n}x4, work queue book2_final {n}x{n}x4, train step cornell_box {n}x{n} "
+          f"(spp_step 128 a cell on (2, 1), 64 on (2, 2), against one device at 128, each in a "
+          f"scan of {mesh_scan_steps()} sub-steps); {b} bounces")
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(target.cpu(), os.path.join(tmp, "target.pt"))
+        for shape in ((2, 1), (2, 2)):
+            t0 = time.perf_counter()
+            ranks = spawn_mesh(shape, tmp)
+            wall = time.perf_counter() - t0
+            errs = {}
+            for r, res in enumerate(ranks):
+                for name, got in res.items():
+                    check(all(got["launches"][k] > 0 for k in MESH_EXPECT[name]),
+                          f"{shape} rank {r} {name}: launches {got['launches']}")
+                    for k, v in got["launches"].items():
+                        total[k] += v
+                    if name == "train":
+                        check(got["done"] == long_done, f"{shape} rank {r} train: "
+                                                        f"{got['done']} samples done, one "
+                                                        f"device {long_done}")
+                        errs[name] = close_steps(f"{shape} rank {r} train", got["loss"],
+                                                 got["grads"], long_loss, long_grads)
+                        continue
+                    # one device's work a pixel at sp = 1; the queue adds with
+                    # float atomics
+                    frame, stats = ref[name]
+                    errs[name] = close_frames(f"{shape} rank {r} {name}", got["frame"],
+                                              frame.cpu(),
+                                              exact=shape[1] == 1 and name != "workqueue")
+                    check(got["rays"] == stats["rays"],
+                          f"{shape} rank {r} {name}: rays {got['rays']} against {stats['rays']}")
+            print(f"  mesh {shape}: {len(ranks)} ranks in {wall:.1f} s of wall time (their start "
+                  "and the kernels' load included); seconds a run, rank by rank: "
+                  + "; ".join(f"{name} {[round(res[name]['seconds'], 3) for res in ranks]}"
+                              for name in MESH_EXPECT)
+                  + f"; rays exact; max abs err of the frames {errs['wavefront']:.3g} "
+                    f"(wavefront), {errs['progressive']:.3g} (progressive), "
+                    f"{errs['workqueue']:.3g} (queue), train loss rel err {errs['train']:.2e}; "
+                    f"on {card_line}, the ranks time-sharing one GPU")
+    return total
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        rank, world, port, n_dp, n_sp = map(int, sys.argv[2:7])
+        mesh_rank(rank, world, port, n_dp, n_sp, sys.argv[7])
+    else:
+        main()

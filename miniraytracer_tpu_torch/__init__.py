@@ -38,6 +38,14 @@ preview and the live view in `utils/`), and so are its triangle BVH
 (`ops/bvh.py`, a component no renderer calls) and its 4x4 helpers
 (`ops/mat4.py`).
 
+The JAX package's device-parallel layer is ported over `torch.distributed`,
+one process a device (`parallel/`): `init_distributed` and `make_mesh` make
+the (dp, sp) mesh, `render_wavefront_distributed`, `render_distributed` and
+`render_workqueue_distributed` split pixels over dp and samples over sp, and
+`make_train_step(..., mesh=mesh)` sums the loss and the gradients over the
+ranks; the command line renders its wavefront over the mesh of a launcher
+(`torchrun --nproc-per-node N -m miniraytracer_tpu_torch ...`).
+
 The entry points run on the NVIDIA GPU: `device=None` means "cuda", the scene
 is moved there, and with no card the call raises. `device="cpu"` runs the
 plain PyTorch versions of the kernels instead (what the tests do). Functions

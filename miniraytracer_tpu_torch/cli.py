@@ -16,8 +16,11 @@ checkpoints), -preview, -live, -checkpoint / -resume, -devices,
 -fast-perlin.
 
 The render runs on the GPU; `main(argv, device="cpu")` runs the plain
-PyTorch versions of the kernels instead. The port runs on one device:
-`-devices` above 1 is refused.
+PyTorch versions of the kernels instead. Under a launcher (`torchrun
+--nproc-per-node N`, one process a device) the ranks join a process group
+and, as in the JAX CLI, the wavefront renders over their (dp, sp) mesh
+(`parallel/render.render_wavefront_distributed`); the other renderers run on
+each rank's device, and rank 0 prints the results and writes the image.
 
 Usage: python -m miniraytracer_tpu_torch [flags]
 """
@@ -72,7 +75,8 @@ def build_parser():
     p.add_argument("-checkpoint-every", type=int, default=16, help="passes between checkpoints")
     p.add_argument("-resume", type=str, default=None, help="resume from a checkpoint file")
     p.add_argument("-devices", type=int, default=0,
-                   help="limit device count (0 = all; the port runs on one)")
+                   help="device count, one process each (0 = the launcher's world "
+                        "size, 1 without a launcher)")
     p.add_argument("-fast-perlin", action="store_true",
                    help="table-free hash-gradient Perlin (statistically equivalent "
                         "but non-parity noise field)")
@@ -96,10 +100,10 @@ def _validate(args):
     return args
 
 
-def _progressive(args, scene, dev):
+def _progressive(args, scene, dev, lead=True):
     """The progressive renderer: passes of one sample of every pixel, with
-    progress lines, checkpoints, the preview and the live view. Returns
-    (frame (H, W, 3) tensor, stats)."""
+    progress lines, checkpoints, the preview and the live view (written by
+    the `lead` rank only). Returns (frame (H, W, 3) tensor, stats)."""
     import torch
 
     from miniraytracer_tpu_torch.models import integrator as integ
@@ -145,7 +149,7 @@ def _progressive(args, scene, dev):
             return
         last_preview[0] = now
         img = tm.drago(frame_flat.reshape(h, w, 3)).cpu().numpy()
-        if args.preview:
+        if args.preview and lead:
             save_png(args.preview, img)
         if live is not None:
             live.update(img[::-1], status=status)
@@ -172,7 +176,7 @@ def _progressive(args, scene, dev):
             mrays = rays_so_far / elapsed / 1e6 if elapsed > 0 else 0.0
             print(f"pass {i + 1}/{ns}  {pct:5.1f}%  elapsed {elapsed:6.1f}s  "
                   f"eta {eta:6.1f}s  {mrays:.2f} Mrays/s")
-            if args.checkpoint:
+            if args.checkpoint and lead:
                 written = save_checkpoint(
                     args.checkpoint, frame_flat.cpu().numpy(), i + 1,
                     {"width": w, "height": h, "scene": args.scene, "samples": ns,
@@ -190,26 +194,58 @@ def _progressive(args, scene, dev):
         "mrays_per_s": rays_total / elapsed / 1e6 if elapsed > 0 else 0.0}
 
 
+def _mesh(args, device):
+    """The mesh of this run: the launcher's world (a group already joined,
+    or WORLD_SIZE above 1 as torchrun sets it, joined here), else the
+    trivial (1, 1) mesh. `-devices` must be 0 or the world size."""
+    import os
+
+    import torch.distributed as dist
+
+    from miniraytracer_tpu_torch.parallel import mesh as M
+
+    joined = dist.is_available() and dist.is_initialized()
+    launched = joined or int(os.environ.get("WORLD_SIZE", "1")) > 1
+    world = int(dist.get_world_size() if joined else os.environ.get("WORLD_SIZE", "1"))
+    n = args.devices or world
+    if n != world:
+        sys.exit(f"-devices {n}: this run has {world} process(es), one a device; start "
+                 f"{n} with `torchrun --nproc-per-node {n} -m miniraytracer_tpu_torch ...`")
+    if joined:
+        return M.make_mesh(*M.auto_mesh_shape(world), device=device)
+    if launched:
+        return M.init_distributed(device=device)
+    return M.make_mesh(device=device)
+
+
 def main(argv=None, *, device=None):
     """Render as the flags say and write the image. `device` None means the
-    GPU (and raises when there is none); the scene is moved there once."""
+    GPU (cuda:LOCAL_RANK under a launcher; it raises when there is none);
+    the scene is moved there once."""
     args = _validate(build_parser().parse_args(argv))
-    if args.devices > 1:
-        sys.exit(f"-devices {args.devices}: the port renders on one GPU (multi-GPU is "
-                 "not ported yet)")
+    mesh = _mesh(args, device)
+    if mesh.dp_index or mesh.sp_index:  # only rank 0 prints and writes
+        import contextlib
+        import io
 
+        with contextlib.redirect_stdout(io.StringIO()):
+            return _run(args, mesh, lead=False)
+    return _run(args, mesh, lead=True)
+
+
+def _run(args, mesh, lead):
     import dataclasses
 
     import numpy as np
 
     from miniraytracer_tpu_torch.models import integrator as integ
     from miniraytracer_tpu_torch.models import scenes as S
-    from miniraytracer_tpu_torch.ops import bounce, hybrid
+    from miniraytracer_tpu_torch.ops import hybrid
+    from miniraytracer_tpu_torch.parallel.render import render_wavefront_distributed
     from miniraytracer_tpu_torch.utils import tonemap as tm
-    from miniraytracer_tpu_torch.utils.device import resolve
     from miniraytracer_tpu_torch.utils.image import save_png, save_ppm
 
-    dev = resolve(device)
+    dev = mesh.device
     t0 = time.perf_counter()
     scene = S.select_scene(args.scene, args.width / args.height)
     if args.fast_perlin:
@@ -217,7 +253,8 @@ def main(argv=None, *, device=None):
     scene = scene.to(dev)
     print(f"scene '{scene.name}' built in {time.perf_counter() - t0:.2f} s "
           f"({scene.n_spheres} spheres, {scene.n_rects} rects, "
-          f"{scene.n_tris} tris, {scene.n_volumes} volumes); 1 device(s) ({dev})")
+          f"{scene.n_tris} tris, {scene.n_volumes} volumes); {mesh.size} device(s) mesh "
+          f"{mesh.n_dp}x{mesh.n_sp} ({dev})")
 
     renderer = args.renderer or ("progressive" if args.mode == 1 else "wavefront")
     common = (scene, args.width, args.height, args.samples)
@@ -229,14 +266,12 @@ def main(argv=None, *, device=None):
     elif renderer == "auto":
         print(f"auto renderer: {integ.pick_renderer(scene)}")
         frame, stats = integ.render_auto(*common, **kw, device=dev)
-    elif renderer == "wavefront" and bounce.can_fuse(scene):
-        # the JAX CLI's wavefront (`render_wavefront_distributed`, fused=None)
-        # takes the fused kernel where the scene is eligible
-        frame, stats = bounce.render_wavefront_fused(*common, **kw)
     elif renderer == "wavefront":
-        frame, stats = integ.render_wavefront(*common, **kw, device=dev)
+        # as the JAX CLI: over the mesh, with the fused kernel where the scene
+        # is eligible (fused=None)
+        frame, stats = render_wavefront_distributed(*common, mesh, **kw)
     else:
-        frame, stats = _progressive(args, scene, dev)
+        frame, stats = _progressive(args, scene, dev, lead)
 
     if stats.get("rays"):
         us_per_ray = stats["seconds"] / stats["rays"] * 1e6
@@ -250,11 +285,9 @@ def main(argv=None, *, device=None):
         out = np.clip(frame.cpu().numpy(), 0.0, 1.0)
     else:
         out = tm.OPERATORS[args.tonemap](frame).cpu().numpy()
-    if args.out.endswith(".ppm"):
-        save_ppm(args.out, out)
-    else:
-        save_png(args.out, out)
-    print(f"wrote {args.out}")
+    if lead:
+        (save_ppm if args.out.endswith(".ppm") else save_png)(args.out, out)
+        print(f"wrote {args.out}")
     return 0
 
 

@@ -386,11 +386,13 @@ def render_wavefront(scene: T.SceneData, width: int, height: int, spp: int,
 def render_workqueue_pixels(scene: T.SceneData, n_pix: int, n_lanes: int, n_samples: int,
                             max_lum, *, width: int, height: int, max_bounces: int,
                             spp_sq: int, fused_shade: bool = True, plain: bool = False,
-                            sample_base: int = 0, stats=None):
+                            pix_base: int = 0, sample_base: int = 0, stats=None):
     """Render with a GLOBAL work queue (work_queue.cpp:133-175, at the
     granularity of one sample), on the scene's device. Work item w is (pixel
-    w % n_pix, sample w // n_pix + sample_base), so early items sweep the
-    whole frame. A lane whose path ends adds its sample to the
+    w % n_pix + pix_base, sample w // n_pix + sample_base), so early items
+    sweep the whole frame; its row of the frame is w % n_pix. A pixel past
+    the image (a padded shard of `parallel/render.py`) is clamped to the last
+    one, whose repeat the caller drops. A lane whose path ends adds its sample to the
     frame and claims the next item at once, by an exclusive prefix sum over
     the lanes that finished: occupancy stays high when a few pixels (through
     glass) need ten times the bounces of the rest, where a pixel-pinned loop
@@ -430,7 +432,7 @@ def render_workqueue_pixels(scene: T.SceneData, n_pix: int, n_lanes: int, n_samp
             return rec.p, sc.new_rd, sc.new_inside, cont, beta, radiance
 
     def camera_rays(item):
-        pix = item % n_pix
+        pix = torch.clamp(item % n_pix + pix_base, 0, width * height - 1)
         samp = torch.div(item, n_pix, rounding_mode="floor") + sample_base
         ss, tt = bounce.film_coords(pix, samp, width, height, spp_sq)
         keys = rng.ray_key(pix, samp)

@@ -17,7 +17,9 @@ the CPU (`main(argv, device="cpu")`: the plain versions of the kernels).
   does not ask for: there its hybrid renderer refuses to run and its auto
   pick is the wavefront, so the port's hybrid and auto images are held
   against JAX's wavefront image (the same estimator, the same RNG streams);
-- with no CUDA device and no `device`, `main` raises.
+- with no CUDA device and no `device`, `main` raises; `-devices 2` without a
+  launcher exits, naming torchrun (tests/test_torch_parallel.py runs the CLI
+  on two ranks).
 """
 
 import os
@@ -154,21 +156,23 @@ def test_renderers_match_jax_cli(jax_images, tmp_path, capsys, renderer, jax_ren
 
 
 def test_wavefront_takes_the_fused_kernel_where_jax_does(tmp_path, monkeypatch):
-    """JAX's CLI renders -renderer wavefront with the fused kernel where the
-    scene is eligible (`render_wavefront_distributed(fused=None)`), else the
-    wavefront of tensor operations."""
+    """JAX's CLI renders -renderer wavefront over its mesh with the fused
+    kernel where the scene is eligible (`render_wavefront_distributed(
+    fused=None)`), else the wavefront of tensor operations; so does the
+    port's, on its trivial mesh without a launcher."""
     from miniraytracer_tpu_torch.models import integrator
     from miniraytracer_tpu_torch.ops import bounce
 
     taken = []
-    for mod, name in ((bounce, "render_wavefront_fused"), (integrator, "render_wavefront")):
+    for mod, name in ((bounce, "render_wavefront_fused_pixels"),
+                      (integrator, "render_wavefront_pixels")):
         real = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, real=real, name=name, **k: (
             taken.append(name), real(*a, **k))[1])
     for scene in ("2", "4"):
         _port(["-renderer", "wavefront", "-scene", scene, "-width", "16", "-height", "16",
                "-samples", "1", "-depth", "2", "-out", str(tmp_path / f"{scene}.png")])
-    assert taken == ["render_wavefront_fused", "render_wavefront"]
+    assert taken == ["render_wavefront_fused_pixels", "render_wavefront_pixels"]
 
 
 def test_main_runs_on_the_gpu_or_raises(tmp_path):
@@ -176,7 +180,7 @@ def test_main_runs_on_the_gpu_or_raises(tmp_path):
         pytest.skip("this machine has a CUDA device")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.main(COMMON + ["-out", str(tmp_path / "x.png")])
-    with pytest.raises(SystemExit, match="one GPU"):
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
         tcli.main(COMMON + ["-devices", "2"], device="cpu")
     assert not os.path.exists(tmp_path / "x.png")
 
