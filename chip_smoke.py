@@ -87,7 +87,9 @@ With a copy of the parent commit's `miniraytracer_tpu_torch/csrc/` in
 kernels are also held against the parent's builds in the same run: B1 bit
 for bit on the Cornell and the perlin_spheres 500x500x64x32 frames (phase
 5), B2 bit for bit at launch 50 and over the whole Cornell scan and at every
-launch of phases 6 and 28, B3's d_f bit for bit (phase 7), B4 bit for bit
+launch of phases 6 and 28, B3's d_f bit for bit at launch 50 of the Cornell
+scan (phase 7) and its d_f and d_ext at every launch of phase 28, each mode
+timed at its last (d_tab, float atomics, within 2e-4), B4 bit for bit
 (phase 9), B5 on earth's and book2_final's queue steps (phase 14) and B6 on
 both point sets (phase 18) bit for bit, each timed in turns (B4-B6 by
 `queued_ms`: their wrappers take longer than they do); and the cluster loop
@@ -311,6 +313,34 @@ def parent_equal(kernels, name, fn, what, check_bits=True, say=True):
         if say:
             print(f"    {what}: equal to the parent's build bit for bit")
     return new, old
+
+
+def b3_parent_equal(kernels, fn, what):
+    """B3 (`bounce_ad.ad_step_bwd`, fn()) with this checkout's build and the
+    parent's: `d_f` (and `d_ext`) bit for bit, `d_tab`, which sums float
+    atomics in another order, within 2e-4 of its largest entry. Returns
+    whether the parent's build was there to compare."""
+    both = parent_equal(kernels, "bounce_ad", fn, what, check_bits=False, say=False)
+    if both is None:
+        print(f"    {what}: the parent's build absent: not compared")
+        return False
+    (d_new, tab_new, *ext_new), (d_old, tab_old, *ext_old) = both
+    tab_rel = (float((tab_new - tab_old).abs().max() / tab_old.abs().max().clamp_min(1e-30))
+               if tab_old.numel() else 0.0)
+    same = equal_outputs([d_new, *ext_new], [d_old, *ext_old])
+    print(f"    {what}: d_f{' and d_ext' if ext_new else ''} equal to the parent's bit for bit: "
+          f"{same}; d_tab max err {tab_rel:.3g} of its largest entry")
+    check(same and tab_rel <= 2e-4, f"{what}: B3 differs from the parent's")
+    return True
+
+
+def print_grid(kernels, fn, bounce_ad, meta, cfg, n, t, what):
+    """The grid `mrt_<fn>` reports for a launch of the fused class."""
+    grid = (ctypes.c_int * 5)()
+    getattr(kernels.load("bounce_ad"), fn)(
+        (ctypes.c_int * bounce_ad._N_IPARAMS)(*bounce_ad.kernel_params(meta, cfg, n, t)), grid)
+    print(f"  {what}'s grid: {grid[0]} blocks of {grid[3]} an SM (occupancy API) x {grid[1]} SMs"
+          f" = {grid[2]} blocks, {grid[4]} B of tables in shared memory")
 
 
 def per_launch(res, launches):
@@ -900,8 +930,9 @@ def train_phases(mrt, bounce, bounce_ad, dev, card_line):
           f"device time is {busy / med:.3f} of the median step)")
     for name, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:4]:
         print(f"    {ms:8.2f} ms  {100 * ms / busy:5.1f}%  x{count:<4d} {name[:90]}")
-    print("  B3 (ad_step_bwd_kernel<EXT, EXT_MAT, IMAGE>, <false, false, false> the fused "
-          "class), ptxas -v:")
+    print("  B3 (ad_step_bwd_kernel<KS, EXT, EXT_MAT, IMAGE>: KS the records a lane keeps, "
+          "<4, false, false, false> the train step's, KS 8 any other count, KS 1 the ext "
+          "modes), ptxas -v:")
     for line in ptxas_lines(kernels.build_log("bounce_ad"), "ad_step_bwd_kernel"):
         print("   ", line)
 
@@ -929,12 +960,8 @@ def train_phases(mrt, bounce, bounce_ad, dev, card_line):
     print("  B2 (ad_step_fwd_kernel<EXT, EXT_MAT, IMAGE, STAGED>), ptxas -v:")
     for line in ptxas_lines(kernels.build_log("bounce_ad"), "ad_step_fwd_kernel"):
         print("   ", line)
-    grid = (ctypes.c_int * 5)()
-    kernels.load("bounce_ad").mrt_ad_step_fwd_grid(
-        (ctypes.c_int * bounce_ad._N_IPARAMS)(*bounce_ad.kernel_params(meta, cfg, w * h, t_mid)),
-        grid)
-    print(f"  B2's grid: {grid[0]} blocks of {grid[3]} an SM (occupancy API) x {grid[1]} SMs = "
-          f"{grid[2]} blocks, {grid[4]} B of tables in shared memory")
+    print_grid(kernels, "mrt_ad_step_fwd_grid", bounce_ad, meta, cfg, w * h, t_mid, "B2")
+    print_grid(kernels, "mrt_ad_step_bwd_grid", bounce_ad, meta, cfg, w * h, t_mid, "B3")
     zeros = torch.zeros((3, w * h), device=dev)
     f_mid = torch.cat([zeros, res_f[t_mid], zeros[:2]])
     fwd_one = lambda: bounce_ad.ad_step_fwd(meta, cfg, tables, t_mid, f_mid, res_i[t_mid],
@@ -948,13 +975,7 @@ def train_phases(mrt, bounce, bounce_ad, dev, card_line):
     cot_mid = torch.randn((bounce_ad.NF, w * h), device=dev, generator=gen_b3)
     bwd_one = lambda: bounce_ad.ad_step_bwd(meta, cfg, tables, t_mid, res_f[t_mid], res_i[t_mid],
                                             res_k[t_mid], pix, sb, cot_mid, None)
-    both_b3 = parent_equal(kernels, "bounce_ad", bwd_one, "B3", check_bits=False)
-    if both_b3 is not None:
-        (d_new, tab_new), (d_old, tab_old) = both_b3
-        tab_rel = float((tab_new - tab_old).abs().max() / tab_old.abs().max().clamp_min(1e-30))
-        print(f"    B3 at launch {t_mid}: d_f equal to the parent's bit for bit: "
-              f"{equal_outputs(d_new, d_old)}; d_tab max err {tab_rel:.3g} of its largest entry")
-        check(equal_outputs(d_new, d_old) and tab_rel <= 2e-4, "B3 differs from the parent's")
+    b3_parent_equal(kernels, bwd_one, f"B3 at launch {t_mid}")
     b2_vs = [print_against_parent(what, res, card_line) for what, res in (
         (f"B2 at launch {t_mid}", against_parent(kernels, "bounce_ad", fwd_one, 10, rounds=2)),
         (f"B2 over the scan, a launch", per_launch(
@@ -2379,6 +2400,11 @@ def ext_train_phases(mrt, bounce, bounce_ad, flash, hybrid, dev, card_line, size
                 worst[mode, key] = max(worst.get((mode, key), 0.0), c[key])
             same = parent_equal(kernels, "bounce_ad", c["run"]["fwd_k"],
                                 f"B2 {name} ({mode}) launch {t}", say=False)
+            b3_parent_equal(kernels, c["run"]["bwd_k"], f"B3 {name} ({mode}) launch {t}")
+        # the redesigned B3 against the parent's in turns, at this mode's last launch
+        print_against_parent(f"B3 {name} ({mode}) launch {at[-1]}, {w}x{w}",
+                             against_parent(kernels, "bounce_ad", c["run"]["bwd_k"], 10, rounds=2),
+                             card_line)
     print(f"  B2 at those launches in the five modes: "
           f"{'equal to the parent build bit for bit' if same else 'the parent build absent'}")
 

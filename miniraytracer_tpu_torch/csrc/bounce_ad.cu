@@ -42,10 +42,12 @@
 // triangle base vertices, material parameters, texture colours; the order of
 // `ops/bounce_ad.py::diff_indices`) are summed over lanes: each lane adds the
 // few entries its path touched to a per-block shared-memory array with
-// atomicAdd, and the block adds its non-zero entries to the global vector
-// with one atomicAdd each. The TPU kernel carried one accumulator across a
-// sequential grid; blocks here run in any order, and a (blocks, n_diff)
-// buffer would cost a second pass per launch. Float atomics make the sums
+// atomicAdd (the block keeps B3_COPIES copies of it and a thread adds to the
+// copy of its lane of the warp, so that the lanes of a warp that hit the same
+// wall do not all wait on one word), and the block adds its non-zero entries
+// to the global vector with one atomicAdd each. The TPU kernel carried one
+// accumulator across a sequential grid; blocks here run in any order, and a
+// (blocks, n_diff) buffer would cost a second pass per launch. Float atomics make the sums
 // differ from run to run at about 1e-6 relative.
 //
 // What bounds them on this card: per-lane ALU work and warp divergence, as in
@@ -54,8 +56,16 @@
 // per launch amortise. The forward runs as the fused render does: a
 // persistent grid of 128-thread blocks whose threads take lanes from a work
 // counter, the scene tables staged in shared memory, no local memory. The
-// backward keeps `k_sub` entry states and bounce records in local memory,
-// one thread per lane, 128-thread blocks.
+// backward runs one thread a lane on a grid of 128-thread blocks that covers
+// the lanes once, and keeps the launch's entry states and bounce records in
+// local memory, in arrays as long as the launch's sub-steps: K_MAIN (the
+// train step's 4), 1 (the ext modes) or MAX_KSUB (any other count). Its
+// fused-class instances take 128 registers, four blocks an SM. Measured
+// against those choices on the card (PERF.md §6, `time_designs.py --only b3`):
+// a persistent grid whose threads claim lanes from a counter, the tables
+// staged in shared memory, the records held in registers (unrolled, or each
+// replayed again from a compact entry) and more registers a thread were each
+// slower.
 //
 // Build: as bounce.cu (utils/kernels.py), --fmad=false so that the replay
 // takes the decisions the plain version takes.
@@ -73,6 +83,7 @@ constexpr int NF = 19, NJ = 3, NRES = 13;
 constexpr int A_SUM = 0, A_RO = 3, A_RD = 6, A_TIME = 9, A_BETA = 10, A_RAD = 13, A_ALIVE = 16,
               A_NV = 17, A_RAYS = 18;
 constexpr int MAX_KSUB = 8;
+constexpr int K_MAIN = 4;  // the train step's sub-steps a launch (ops/bounce_ad.py::scan_plan)
 // candidate rows (ops/hybrid.py NE, NE_MAT): t, nx, ny, nz, mat_f, then in
 // ext-material mode mtype, mparam, albedo r g b, texel index
 constexpr int E_T = 0, E_N = 1, E_MAT = 4, E_MTYPE = 5, E_MPARAM = 6, E_ALB = 7, E_IMG = 10;
@@ -1057,15 +1068,14 @@ __device__ void substep_adjoint(const Tables& tb, const AdParams& P, const ExtCa
   g_rad = G_rad;
 }
 
-template <bool EXT, bool EXT_MAT, bool IMAGE>
+// KS: the length of the record arrays, at least the launch's sub-steps
+template <int KS, bool EXT, bool EXT_MAT, bool IMAGE>
 __device__ void lane_backward(const Tables& tb, const AdParams& P, const Atlas& atlas,
                               const float* __restrict__ res, const int* __restrict__ i_in,
                               const int* __restrict__ k_in, const int* __restrict__ pix_in,
                               const int* __restrict__ sb_in, const float* __restrict__ ext_in,
                               const float* __restrict__ cot, float* __restrict__ d_f,
                               float* __restrict__ d_ext_out, float* dt, int lane) {
-  // the ext modes take one sub-step a launch
-  constexpr int KS = EXT ? 1 : MAX_KSUB;
   const int n = P.n;
   const uint32_t pix = (uint32_t)pix_in[lane];
   const int sampbase = sb_in[lane];
@@ -1114,25 +1124,40 @@ __device__ void lane_backward(const Tables& tb, const AdParams& P, const Atlas& 
   }
 }
 
-template <bool EXT, bool EXT_MAT, bool IMAGE>
-__global__ void __launch_bounds__(MRT_AD_THREADS)
+// The block's sums of the table cotangents: B3_COPIES copies, DT_STRIDE words
+// apart (odd, so the copies of an entry sit in different banks).
+constexpr int B3_COPIES = 4;
+constexpr int DT_STRIDE = MAX_NDIFF + 1;
+
+// Blocks an SM the launch bounds ask for: four (128 registers) in the fused
+// class; the ext modes' instances keep their registers (one sub-step, its
+// record in registers).
+template <bool EXT>
+struct BwdBounds {
+  static constexpr int min_blocks = EXT ? 1 : 4;
+};
+
+template <int KS, bool EXT, bool EXT_MAT, bool IMAGE>
+__global__ void __launch_bounds__(MRT_AD_THREADS, BwdBounds<EXT>::min_blocks)
 ad_step_bwd_kernel(Tables tb, AdParams P, Atlas atlas, const float* __restrict__ res,
                    const int* __restrict__ i_in, const int* __restrict__ k_in,
                    const int* __restrict__ pix_in, const int* __restrict__ sb_in,
                    const float* __restrict__ ext_in, const float* __restrict__ cot,
                    float* __restrict__ d_f, float* __restrict__ d_ext,
                    float* __restrict__ d_tab) {
-  __shared__ float s_dtab[MAX_NDIFF];
+  __shared__ float s_dtab[B3_COPIES * DT_STRIDE];
   const int n_diff = 4 * P.S + 3 * P.Tc + P.M + 6 * P.X;
-  for (int i = threadIdx.x; i < n_diff; i += blockDim.x) s_dtab[i] = 0.0f;
+  for (int i = threadIdx.x; i < B3_COPIES * DT_STRIDE; i += blockDim.x) s_dtab[i] = 0.0f;
   __syncthreads();
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  float* dt = s_dtab + (int)(threadIdx.x % B3_COPIES) * DT_STRIDE;
   if (lane < P.n)
-    lane_backward<EXT, EXT_MAT, IMAGE>(tb, P, atlas, res, i_in, k_in, pix_in, sb_in, ext_in, cot,
-                                       d_f, d_ext, s_dtab, lane);
+    lane_backward<KS, EXT, EXT_MAT, IMAGE>(tb, P, atlas, res, i_in, k_in, pix_in, sb_in, ext_in,
+                                           cot, d_f, d_ext, dt, lane);
   __syncthreads();
   for (int i = threadIdx.x; i < n_diff; i += blockDim.x) {
     float v = s_dtab[i];
+    for (int c = 1; c < B3_COPIES; ++c) v = v + s_dtab[c * DT_STRIDE + i];
     if (v != 0.0f) atomicAdd(d_tab + i, v);
   }
 }
@@ -1207,16 +1232,34 @@ int launch_fwd(const Tables& tb, const AdParams& P, const Atlas& atlas, const fl
   return (int)cudaGetLastError();
 }
 
+template <int KS, bool EXT, bool EXT_MAT, bool IMAGE>
+int launch_bwd_ks(const Tables& tb, const AdParams& P, const Atlas& atlas, const float* res,
+                  const int* i_in, const int* k_in, const int* pix, const int* sb,
+                  const float* ext, const float* cot, float* d_f, float* d_ext, float* d_tab,
+                  void* stream) {
+  const int threads = MRT_AD_THREADS;
+  const int blocks = (P.n + threads - 1) / threads;
+  auto kernel = ad_step_bwd_kernel<KS, EXT, EXT_MAT, IMAGE>;
+  MRT_LAUNCH(kernel, blocks, threads, 0, stream, tb, P, atlas, res, i_in, k_in, pix, sb, ext, cot,
+             d_f, d_ext, d_tab);
+  return (int)cudaGetLastError();
+}
+
+// The instance for the launch's sub-steps: one in the ext modes; K_MAIN, or
+// the general MAX_KSUB, in the fused class.
 template <bool EXT, bool EXT_MAT, bool IMAGE>
 int launch_bwd(const Tables& tb, const AdParams& P, const Atlas& atlas, const float* res,
                const int* i_in, const int* k_in, const int* pix, const int* sb, const float* ext,
                const float* cot, float* d_f, float* d_ext, float* d_tab, void* stream) {
-  const int threads = MRT_AD_THREADS;
-  const int blocks = (P.n + threads - 1) / threads;
-  auto kernel = ad_step_bwd_kernel<EXT, EXT_MAT, IMAGE>;
-  MRT_LAUNCH(kernel, blocks, threads, 0, stream, tb, P, atlas, res, i_in, k_in, pix, sb, ext, cot,
-             d_f, d_ext, d_tab);
-  return (int)cudaGetLastError();
+  if constexpr (EXT)
+    return launch_bwd_ks<1, EXT, EXT_MAT, IMAGE>(tb, P, atlas, res, i_in, k_in, pix, sb, ext,
+                                                 cot, d_f, d_ext, d_tab, stream);
+  else if (P.k_sub == K_MAIN)
+    return launch_bwd_ks<K_MAIN, EXT, EXT_MAT, IMAGE>(tb, P, atlas, res, i_in, k_in, pix, sb,
+                                                      ext, cot, d_f, d_ext, d_tab, stream);
+  else
+    return launch_bwd_ks<MAX_KSUB, EXT, EXT_MAT, IMAGE>(tb, P, atlas, res, i_in, k_in, pix, sb,
+                                                        ext, cot, d_f, d_ext, d_tab, stream);
 }
 
 }  // namespace
@@ -1305,6 +1348,29 @@ void mrt_ad_step_fwd_grid(const int* ip, int* out) {
   out[2] = g.blocks;
   out[3] = MRT_AD_THREADS;
   out[4] = smem;
+}
+
+// The grid of a backward launch of the fused class for `ip`, as
+// mrt_ad_step_fwd_grid reports the forward's: blocks an SM holds, SMs, blocks
+// (one thread a lane), threads a block, dynamic shared memory (none).
+void mrt_ad_step_bwd_grid(const int* ip, int* out) {
+  AdParams P;
+  read_params(ip, P);
+  Grid g{0, 0, 0};
+  int dev = 0;
+  if (P.k_sub == K_MAIN)
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &g.per_sm, ad_step_bwd_kernel<K_MAIN, false, false, false>, MRT_AD_THREADS, 0);
+  else
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &g.per_sm, ad_step_bwd_kernel<MAX_KSUB, false, false, false>, MRT_AD_THREADS, 0);
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&g.sms, cudaDevAttrMultiProcessorCount, dev);
+  out[0] = g.per_sm;
+  out[1] = g.sms;
+  out[2] = (P.n + MRT_AD_THREADS - 1) / MRT_AD_THREADS;
+  out[3] = MRT_AD_THREADS;
+  out[4] = 0;
 }
 
 const char* mrt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -138,23 +138,22 @@ def test_emulated_ad_step_kernels_match_plain(emulated, name):
     assert float(f[tad.A_NV].sum()) == w * h * spp
 
 
-@pytest.mark.parametrize("name,k_sub", [
-    ("cornell_box", 1), ("cornell_box", 4), ("cornell_box", 8), ("synthetic", 1),
-    ("synthetic", 4), ("synthetic", 8), ("perlin_spheres", 8), ("random_spheres", 1),
-    ("earth", 1)])
-def test_emulated_ad_step_bwd_at_sub_steps(emulated, name, k_sub):
-    """B3 replays a launch's sub-steps and keeps each one's entry state and
-    bounce record for its adjoint (`k_sub` of them a lane): at 1, 4 (the
-    train step's) and 8 (the most) sub-steps a launch in the fused class, and
-    at the one sub-step of the ext modes (ext-material: random_spheres; image:
-    earth), launch by launch over a scan from the plain scan's states: every
-    entry of `d_f` (and `d_ext`) within 2e-3*|plain| + 2e-4 of its lane's
-    largest, `d_tab` within 1e-4 of its largest entry, for a seeded
-    cotangent."""
-    scene = _scene(name)
-    w = h = 8
+def _bwd_scan_case(lib, scene, k_sub, w, at=None):
+    """B3 launch by launch over a scan of w x w lanes, 2 spp, 6 bounces,
+    `k_sub` sub-steps a launch (at the launches `at`, or at every one), from
+    the plain scan's states and a seeded cotangent: every entry of `d_f` (and
+    `d_ext`) within 2e-3*|plain| + 2e-4 of its lane's largest, `d_tab` within
+    1e-4 of its largest entry. Its grid (`mrt_ad_step_bwd_grid`) covers the
+    lanes once, one thread a lane, with no dynamic shared memory. Blocks have
+    one thread here, so a block's sums of the table cotangents hold one lane;
+    the card's blocks of 128 lanes are held by chip_smoke.py (phases 6, 7,
+    28: `d_tab` against the plain version's and the parent build's).
+    Returns the count of table entries touched."""
+    h = w
+    n = w * h
     spp, bounces = 2, 6
-    ext_mode = name in ("random_spheres", "earth")
+    ext_mode = not tbounce.can_fuse(scene)
+    images = None
     if ext_mode:
         plan = thybrid.smem_plan(scene) if thybrid.ext_mat_mode(scene) else None
         meta, tables = thybrid.pack_scene_hybrid(scene, plan)
@@ -164,31 +163,59 @@ def test_emulated_ad_step_bwd_at_sub_steps(emulated, name, k_sub):
         meta, tables = tbounce.pack_scene(scene)
     _, claim, k, outer = tad.scan_plan(spp, bounces, spp * (bounces + 1) + 2, k_sub)
     assert k == k_sub
+    at = range(outer) if at is None else at
     cfg = tad.StepConfig(w, h, 8, bounces, spp, claim, k)
-    pix = torch.arange(w * h, dtype=torch.int32)
+    per_sm, sms, blocks, threads, smem = _grid(lib, "mrt_ad_step_bwd_grid",
+                                               tad.kernel_params(meta, cfg, n, 0, ext_mode))
+    assert blocks * threads >= n > (blocks - 1) * threads and smem == 0, (blocks, threads)
+    pix = torch.arange(n, dtype=torch.int32)
     sb = torch.zeros_like(pix)
     f, i, kk = tad.initial_state(scene, pix, sb, spp, width=w, height=h, sq_off=8)
     rs = np.random.default_rng(k_sub)
     bwd0, touched = tad.bwd_launches, 0
-    for t in range(outer):
+    for t in range(max(at) + 1):
         args = (meta, cfg, tables, t)
         xa = (cand.rows(f, i), images) if ext_mode else ()
-        cot = torch.as_tensor(rs.normal(size=(tad.NF, w * h)).astype(np.float32))
-        res = f[tad.RES_LO:tad.RES_HI].contiguous()
-        out_p = tad.ad_step_bwd_plain(*args, res, i, kk, pix, sb, cot, *xa)
-        out_k = tad.ad_step_bwd(*args, res, i, kk, pix, sb, cot, None, *xa)
-        (dp, tp), (dk, tk) = out_p[:2], out_k[:2]
-        if ext_mode:
-            dp, dk = torch.cat([dp, out_p[2]]), torch.cat([dk, out_k[2]])
-        top = dp.abs().amax(0)
-        assert ((dk - dp).abs() <= 2e-3 * dp.abs() + 2e-4 * top).all(), t
-        if tp.numel():
-            assert float((tk - tp).abs().max()) <= 1e-4 * float(tp.abs().max()) + 1e-30, t
-            touched += int((tp != 0).sum())
+        if t in at:
+            cot = torch.as_tensor(rs.normal(size=(tad.NF, n)).astype(np.float32))
+            res = f[tad.RES_LO:tad.RES_HI].contiguous()
+            out_p = tad.ad_step_bwd_plain(*args, res, i, kk, pix, sb, cot, *xa)
+            out_k = tad.ad_step_bwd(*args, res, i, kk, pix, sb, cot, None, *xa)
+            (dp, tp), (dk, tk) = out_p[:2], out_k[:2]
+            if ext_mode:
+                dp, dk = torch.cat([dp, out_p[2]]), torch.cat([dk, out_k[2]])
+            top = dp.abs().amax(0)
+            assert ((dk - dp).abs() <= 2e-3 * dp.abs() + 2e-4 * top).all(), t
+            if tp.numel():
+                assert float((tk - tp).abs().max()) <= 1e-4 * float(tp.abs().max()) + 1e-30, t
+                touched += int((tp != 0).sum())
         f, i, kk = tad.ad_step_fwd_plain(*args, f, i, kk, pix, sb, *xa)
-    assert tad.bwd_launches == bwd0 + outer
-    assert touched > 0 or name == "random_spheres"
-    assert float(f[tad.A_NV].sum()) == w * h * spp
+    assert tad.bwd_launches == bwd0 + len(at)
+    if len(at) == outer:
+        assert float(f[tad.A_NV].sum()) == n * spp
+    return touched
+
+
+@pytest.mark.parametrize("name,k_sub", [
+    ("cornell_box", 1), ("cornell_box", 4), ("cornell_box", 8), ("synthetic", 1),
+    ("synthetic", 4), ("synthetic", 8), ("perlin_spheres", 1), ("perlin_spheres", 4),
+    ("perlin_spheres", 8), ("hybrid_probe", 1), ("random_spheres", 1), ("earth", 1),
+    ("random_spheres_2", 1)])
+def test_emulated_ad_step_bwd_at_sub_steps(emulated, host_libraries, name, k_sub):
+    """B3's instances (`_bwd_scan_case`, 8x8 lanes): the fused class at 4
+    sub-steps a launch (the train step's instance, records of 4 sub-steps)
+    and at 1 and 8 (the general instance, records of up to 8), and the ext
+    (hybrid_probe), ext-material (random_spheres), image (earth) and
+    ext-material-with-image (random_spheres_2) modes at their one
+    sub-step."""
+    if name == "hybrid_probe":
+        scene = tscenes.hybrid_probe(1.0, 80, 200)
+    elif name in ("random_spheres", "earth", "random_spheres_2"):
+        scene = getattr(tscenes, name)(1.0)
+    else:
+        scene = _scene(name)
+    touched = _bwd_scan_case(host_libraries["bounce_ad"], scene, k_sub, 8)
+    assert touched > 0 or name in ("random_spheres", "random_spheres_2")
 
 
 @pytest.mark.parametrize("name", ["cornell_box", "sphere_light", "synthetic"])
@@ -360,6 +387,17 @@ def test_emulated_tables_beyond_the_stage_budget(emulated, host_libraries):
     meta, cfg = _b2_case(scene, w, h, (0, 2))
     assert _grid(host_libraries["bounce_ad"], "mrt_ad_step_fwd_grid",
                  tad.kernel_params(meta, cfg, w * h, 0))[4] == 0
+
+
+@pytest.mark.parametrize("k_sub", [4, 2])
+def test_emulated_ad_step_bwd_beyond_the_stage_budget(emulated, host_libraries, k_sub):
+    """B3's fused-class instances (the train step's, at 4 sub-steps, and the
+    general one) on a scene whose tables exceed the shared-memory budget of
+    B1 and B2 (600 boxes; B3 reads its tables from global memory in every
+    scene), against the plain version as `_bwd_scan_case` holds it, at the
+    first launch of a scan of 4x4 lanes (the plain adjoint of 600 boxes is
+    slow)."""
+    _bwd_scan_case(host_libraries["bounce_ad"], _many_boxes(600), k_sub, 4, (0,))
 
 
 def _sweep_rays(n, seed):
