@@ -31,6 +31,7 @@ from miniraytracer_tpu_torch.ops import bounce, hybrid, rng
 from miniraytracer_tpu_torch.ops import intersect as ix
 from miniraytracer_tpu_torch.ops.vecmath import V3, luminance, vdiv, vluminance, vwhere
 from miniraytracer_tpu_torch.scene import types as T
+from miniraytracer_tpu_torch.utils import profiling
 from miniraytracer_tpu_torch.utils.device import resolve
 
 
@@ -672,9 +673,11 @@ def render_auto(scene, width, height, spp, max_bounces=32, max_lum=1000.0,
     """Render with the picked forward renderer on `device`: None means the
     GPU (raises when there is none), and the scene is moved there. Returns
     (frame (H,W,3) float32 tensor on that device, stats)."""
-    dev = resolve(device)
-    render = {"fused": bounce.render_wavefront_fused,
-              "hybrid": hybrid.render_wavefront_hybrid,
-              "workqueue": functools.partial(render_workqueue, device=dev),
-              "wavefront": functools.partial(render_wavefront, device=dev)}[pick_renderer(scene)]
-    return render(scene.to(dev), width, height, spp, max_bounces, max_lum)
+    with profiling.span("mrt.render"):
+        dev = resolve(device)
+        renderers = {"fused": bounce.render_wavefront_fused,
+                     "hybrid": hybrid.render_wavefront_hybrid,
+                     "workqueue": functools.partial(render_workqueue, device=dev),
+                     "wavefront": functools.partial(render_wavefront, device=dev)}
+        render = renderers[pick_renderer(scene)]
+        return render(scene.to(dev), width, height, spp, max_bounces, max_lum)

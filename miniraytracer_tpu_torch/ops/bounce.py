@@ -45,6 +45,7 @@ from miniraytracer_tpu_torch.ops.vecmath import (V3, sphere_uv, vcross, vdiv, vd
                                                  vnormalize, vonb_from_w, vonb_l2w,
                                                  vreflect, vrefract, vsdot, vsqrt, vwhere)
 from miniraytracer_tpu_torch.scene import types as T
+from miniraytracer_tpu_torch.utils import profiling
 
 INF = 3.0e38
 NEG = -3.0e38
@@ -92,50 +93,51 @@ def pack_scene(scene: T.SceneData):
     (sph 12*S, rect 17*R, tri 20*T, box 13*B, vol 16*V, mat 3*M, tex 9*X,
     cam 21); integer codes ride as f32. ptab is (6, 256) f32. All tables
     are on the scene's device."""
-    meta = dict(
-        S=scene.n_spheres, R=scene.n_rects, Tc=scene.n_tris,
-        Bx=scene.n_boxes if scene.has_boxes else 0,
-        V=scene.n_volumes,
-        M=int(scene.mat_type.shape[0]),
-        X=int(scene.tex_type.shape[0]),
-        lights=tuple(scene.lights), use_sky=bool(scene.use_sky),
-        exact_cosine=bool(scene.exact_cosine),
-        perlin=bool(scene.has_perlin),
-        image=bool(scene.has_image),
-        img_hw=(tuple(int(d) for d in scene.images.shape[1:3])
-                if scene.has_image else (0, 0)),
-    )
-    dev = scene.device
-    f32 = lambda a: a.to(torch.float32).reshape(-1)
-    pad = torch.zeros((1,), dtype=torch.float32, device=dev)
+    with profiling.span("mrt.pack_scene"):
+        meta = dict(
+            S=scene.n_spheres, R=scene.n_rects, Tc=scene.n_tris,
+            Bx=scene.n_boxes if scene.has_boxes else 0,
+            V=scene.n_volumes,
+            M=int(scene.mat_type.shape[0]),
+            X=int(scene.tex_type.shape[0]),
+            lights=tuple(scene.lights), use_sky=bool(scene.use_sky),
+            exact_cosine=bool(scene.exact_cosine),
+            perlin=bool(scene.has_perlin),
+            image=bool(scene.has_image),
+            img_hw=(tuple(int(d) for d in scene.images.shape[1:3])
+                    if scene.has_image else (0, 0)),
+        )
+        dev = scene.device
+        f32 = lambda a: a.to(torch.float32).reshape(-1)
+        pad = torch.zeros((1,), dtype=torch.float32, device=dev)
 
-    def cat(n, parts):
-        return torch.cat([f32(a) for a in parts]) if n else pad
+        def cat(n, parts):
+            return torch.cat([f32(a) for a in parts]) if n else pad
 
-    sph = cat(meta["S"], [
-        scene.sph_c0, scene.sph_c1, scene.sph_t0, scene.sph_t1,
-        scene.sph_moving, scene.sph_radius, scene.sph_mat, scene.sph_active])
-    rect = cat(meta["R"], [
-        scene.rect_ei, scene.rect_ej, scene.rect_ek, scene.rect_k,
-        scene.rect_i0, scene.rect_i1, scene.rect_j0, scene.rect_j1,
-        scene.rect_sign, scene.rect_mat, scene.rect_active])
-    tri = cat(meta["Tc"], [
-        scene.tri_m, scene.tri_u, scene.tri_v, scene.tri_mn, scene.tri_un,
-        scene.tri_vn, scene.tri_mat, scene.tri_active])
-    box = cat(meta["Bx"], [
-        scene.box_lo, scene.box_hi, scene.box_cs, scene.box_off,
-        scene.box_mat, scene.box_active])
-    vol = cat(meta["V"], [
-        scene.vol_bparams, scene.vol_btype, scene.vol_density, scene.vol_mat,
-        scene.vol_active])
-    mat = cat(1, [scene.mat_type, scene.mat_param, scene.mat_tex])
-    tex = cat(1, [scene.tex_type, scene.tex_c0, scene.tex_c1,
-                  scene.tex_scale, scene.tex_img])
-    if meta["perlin"]:
-        ptab = noise.noise_tables(scene)
-    else:
-        ptab = torch.zeros((6, 256), dtype=torch.float32, device=dev)
-    return meta, [sph, rect, tri, box, vol, mat, tex, camera_table(scene.camera), ptab]
+        sph = cat(meta["S"], [
+            scene.sph_c0, scene.sph_c1, scene.sph_t0, scene.sph_t1,
+            scene.sph_moving, scene.sph_radius, scene.sph_mat, scene.sph_active])
+        rect = cat(meta["R"], [
+            scene.rect_ei, scene.rect_ej, scene.rect_ek, scene.rect_k,
+            scene.rect_i0, scene.rect_i1, scene.rect_j0, scene.rect_j1,
+            scene.rect_sign, scene.rect_mat, scene.rect_active])
+        tri = cat(meta["Tc"], [
+            scene.tri_m, scene.tri_u, scene.tri_v, scene.tri_mn, scene.tri_un,
+            scene.tri_vn, scene.tri_mat, scene.tri_active])
+        box = cat(meta["Bx"], [
+            scene.box_lo, scene.box_hi, scene.box_cs, scene.box_off,
+            scene.box_mat, scene.box_active])
+        vol = cat(meta["V"], [
+            scene.vol_bparams, scene.vol_btype, scene.vol_density, scene.vol_mat,
+            scene.vol_active])
+        mat = cat(1, [scene.mat_type, scene.mat_param, scene.mat_tex])
+        tex = cat(1, [scene.tex_type, scene.tex_c0, scene.tex_c1,
+                      scene.tex_scale, scene.tex_img])
+        if meta["perlin"]:
+            ptab = noise.noise_tables(scene)
+        else:
+            ptab = torch.zeros((6, 256), dtype=torch.float32, device=dev)
+        return meta, [sph, rect, tri, box, vol, mat, tex, camera_table(scene.camera), ptab]
 
 
 def camera_table(cam) -> torch.Tensor:
@@ -964,13 +966,15 @@ def render_wavefront_fused_pixels(scene, pix, sample_lo, n_samples, max_lum,
     kw = dict(width=width, height=height, max_bounces=max_bounces,
               spp_sq=spp_sq)
     if scene.device.type == "cpu":
-        return render_wavefront_fused_pixels_plain(
-            scene, pix, sample_lo, n_samples, max_lum, **kw)
+        with profiling.span("mrt.b1"):
+            return render_wavefront_fused_pixels_plain(
+                scene, pix, sample_lo, n_samples, max_lum, **kw)
     if scene.device.type != "cuda":
         raise ValueError(f"no fused renderer for device {scene.device}")
     meta, tables = pack_scene(scene)
-    return _launch_kernel(meta, tables, pix, sample_lo, n_samples, max_lum,
-                          **kw)
+    with profiling.span("mrt.b1"):
+        return _launch_kernel(meta, tables, pix, sample_lo, n_samples, max_lum,
+                              **kw)
 
 
 def render_wavefront_fused(scene, width, height, spp, max_bounces=32,
@@ -985,7 +989,8 @@ def render_wavefront_fused(scene, width, height, spp, max_bounces=32,
         scene, pix, 0, ns, max_lum, width=width, height=height,
         max_bounces=max_bounces, spp_sq=sq)
     frame = accum / torch.clamp_min(count.to(torch.float32), 1.0)[:, None]
-    total = int(rays.sum(dtype=torch.int64))  # waits for the device
+    with profiling.span("mrt.wait.rays"):
+        total = int(rays.sum(dtype=torch.int64))  # waits for the device
     elapsed = _time.perf_counter() - t0
     return frame.reshape(height, width, 3), {
         "seconds": elapsed,

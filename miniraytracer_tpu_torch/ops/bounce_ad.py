@@ -56,7 +56,7 @@ from miniraytracer_tpu_torch.ops import hybrid, noise, rng
 from miniraytracer_tpu_torch.ops import intersect as ix
 from miniraytracer_tpu_torch.ops.vecmath import V3, vdiv, vwhere
 from miniraytracer_tpu_torch.scene import types as T
-from miniraytracer_tpu_torch.utils import device
+from miniraytracer_tpu_torch.utils import device, profiling
 
 # float state rows
 A_SUM, A_RO, A_RD, A_TIME, A_BETA, A_RAD, A_ALIVE, A_NV, A_RAYS = (
@@ -507,25 +507,27 @@ def scan_forward(meta, cfg, outer_steps, tables, f0, i0, k0, pix, sb, *,
     step_fwd = ad_step_fwd_plain if plain else ad_step_fwd
     n, dev = f0.shape[1], f0.device
     residual = None
-    if keep:
-        residual = (
-            torch.empty((outer_steps, RES_HI - RES_LO, n), dtype=torch.float32,
-                        device=dev),
-            torch.empty((outer_steps, NJ, n), dtype=torch.int32, device=dev),
-            torch.empty((outer_steps, n), dtype=torch.int32, device=dev))
-        if candidate is not None:
-            residual += (torch.empty((outer_steps, ext_rows(meta), n), dtype=torch.float32,
-                                     device=dev),)
-    f, i, k = f0, i0, k0
-    for t in range(outer_steps):
-        ext = None if candidate is None else candidate.rows(f, i)
+    with profiling.span("mrt.scan.forward"):
         if keep:
-            residual[0][t].copy_(f[RES_LO:RES_HI])
-            residual[1][t].copy_(i)
-            residual[2][t].copy_(k)
-            if ext is not None:
-                residual[3][t].copy_(ext)
-        f, i, k = step_fwd(meta, cfg, tables, t, f, i, k, pix, sb, ext, images)
+            residual = (
+                torch.empty((outer_steps, RES_HI - RES_LO, n), dtype=torch.float32,
+                            device=dev),
+                torch.empty((outer_steps, NJ, n), dtype=torch.int32, device=dev),
+                torch.empty((outer_steps, n), dtype=torch.int32, device=dev))
+            if candidate is not None:
+                residual += (torch.empty((outer_steps, ext_rows(meta), n),
+                                         dtype=torch.float32, device=dev),)
+        f, i, k = f0, i0, k0
+        for t in range(outer_steps):
+            ext = None if candidate is None else candidate.rows(f, i)
+            if keep:
+                residual[0][t].copy_(f[RES_LO:RES_HI])
+                residual[1][t].copy_(i)
+                residual[2][t].copy_(k)
+                if ext is not None:
+                    residual[3][t].copy_(ext)
+            with profiling.span("mrt.b2"):
+                f, i, k = step_fwd(meta, cfg, tables, t, f, i, k, pix, sb, ext, images)
     return (f, i, k), residual
 
 
@@ -541,29 +543,33 @@ def scan_backward(meta, cfg, outer_steps, tables, residual, pix, sb, cot_f, *,
     res_f, res_i, res_k = residual[:3]
     cot = cot_f.contiguous()
     dev = cot.device
-    # the index tensors first: their host-to-device copies would otherwise
-    # make the host wait for the whole loop below
-    didx = {name: torch.as_tensor(idx, dtype=torch.int64, device=dev)
-            for name, idx in diff_indices(meta).items()}
-    d_tab = torch.zeros((n_diff(meta),), dtype=torch.float32, device=dev)
-    for t in reversed(range(outer_steps)):
-        ext = None if candidate is None else residual[3][t]
-        args = (meta, cfg, tables, t, res_f[t], res_i[t], res_k[t], pix, sb, cot)
-        if plain:
-            out = ad_step_bwd_plain(*args, ext, images)
-            d_tab += out[1]
-        else:
-            out = ad_step_bwd(*args, d_tab, ext, images)
-        cot = out[0]
-        if candidate is not None:
-            candidate.pullback(res_f[t], res_i[t], out[2], cot)
-    grads = [None] * len(tables)
-    o = 0
-    for name, k in _DIFF_TABLES:
-        g = torch.zeros_like(tables[k])
-        g[didx[name]] = d_tab[o:o + didx[name].numel()]
-        o += didx[name].numel()
-        grads[k] = g
+    with profiling.span("mrt.scan.backward"):
+        # the index tensors first: their host-to-device copies would
+        # otherwise make the host wait for the whole loop below
+        didx = {}
+        for name, idx in diff_indices(meta).items():
+            with profiling.span("mrt.wait.indices"):  # a pageable copy waits
+                didx[name] = torch.as_tensor(idx, dtype=torch.int64, device=dev)
+        d_tab = torch.zeros((n_diff(meta),), dtype=torch.float32, device=dev)
+        for t in reversed(range(outer_steps)):
+            ext = None if candidate is None else residual[3][t]
+            args = (meta, cfg, tables, t, res_f[t], res_i[t], res_k[t], pix, sb, cot)
+            with profiling.span("mrt.b3"):
+                if plain:
+                    out = ad_step_bwd_plain(*args, ext, images)
+                    d_tab += out[1]
+                else:
+                    out = ad_step_bwd(*args, d_tab, ext, images)
+            cot = out[0]
+            if candidate is not None:
+                candidate.pullback(res_f[t], res_i[t], out[2], cot)
+        grads = [None] * len(tables)
+        o = 0
+        for name, k in _DIFF_TABLES:
+            g = torch.zeros_like(tables[k])
+            g[didx[name]] = d_tab[o:o + didx[name].numel()]
+            o += didx[name].numel()
+            grads[k] = g
     return grads
 
 
@@ -713,7 +719,7 @@ def scan_plan(spp, max_bounces, scan_steps=0, sub_steps=0):
 def initial_state(scene, pix, sb, spp, *, width, height, sq_off):
     """Lane state before the first step: sample `sb` of each pixel's camera
     ray (not differentiable). Returns (fstate, istate, keys)."""
-    with torch.no_grad():
+    with torch.no_grad(), profiling.span("mrt.scan.init"):
         n = pix.shape[0]
         pix64, sb64 = pix.to(torch.int64), sb.to(torch.int64)
         keys0 = rng.ray_key(pix64, sb64)
@@ -782,7 +788,8 @@ def sample_pixel_sums_fused(scene, pix, samp_base, spp, *, width, height,
         spp, max_bounces, scan_steps, sub_steps)
     cfg = StepConfig(width, height, sq_off, max_bounces, spp, claim_limit, k_sub)
     n = pix.shape[0]
-    sb = torch.as_tensor(samp_base, dtype=torch.int32, device=pix.device)
+    with profiling.span("mrt.wait.sample_base"):  # an int's copy to the device waits
+        sb = torch.as_tensor(samp_base, dtype=torch.int32, device=pix.device)
     sb = sb.reshape(-1).expand(n).contiguous()
     f0, i0, k0 = initial_state(scene, pix, sb, spp, width=width, height=height,
                                sq_off=sq_off)

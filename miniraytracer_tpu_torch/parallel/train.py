@@ -29,6 +29,7 @@ from miniraytracer_tpu_torch.ops import bounce_ad, hybrid
 from miniraytracer_tpu_torch.parallel.mesh import Mesh, _mesh_device, sp_sum
 from miniraytracer_tpu_torch.parallel.render import _padded_size
 from miniraytracer_tpu_torch.scene import types as T
+from miniraytracer_tpu_torch.utils import profiling
 from miniraytracer_tpu_torch.utils.device import resolve
 
 
@@ -254,21 +255,28 @@ def make_train_step(*, width: int, height: int, max_bounces: int, pack: int = 1,
         return _sse(radiance, n_valid, target_l, in_image)
 
     def step(params, scene, target, sample0, lr, *, offsets=None, stats=None):
-        scene = scene.to(dev)
-        target_l = target_rows(target)
-        leaves = TrainParams(*(p.detach().to(dev).requires_grad_(True)
-                               for p in params))
-        sse = shard_sse(leaves, scene, target_l, sample0,
-                        default_offsets if offsets is None else offsets, stats)
-        grads = torch.autograd.grad(sse / (n_pix * 3.0), list(leaves), allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        if mesh.distributed:
-            flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]), "world")
-            grads = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
-        grads = TrainParams(*grads)
-        loss = mesh.all_reduce(sse.detach().clone(), "dp") / (n_pix * 3.0)
-        new_params = TrainParams(*((p - lr * g).detach()
-                                   for p, g in zip(leaves, grads)))
-        return new_params, loss, grads
+        with profiling.span("mrt.step"):
+            scene = scene.to(dev)
+            target_l = target_rows(target)
+            leaves = TrainParams(*(p.detach().to(dev).requires_grad_(True)
+                                   for p in params))
+            with profiling.span("mrt.step.forward"):
+                sse = shard_sse(leaves, scene, target_l, sample0,
+                                default_offsets if offsets is None else offsets, stats)
+            with profiling.span("mrt.step.backward"):
+                grads = torch.autograd.grad(sse / (n_pix * 3.0), list(leaves),
+                                            allow_unused=True)
+            with profiling.span("mrt.step.update"):
+                grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(leaves, grads)]
+                if mesh.distributed:
+                    flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]), "world")
+                    grads = [f.view_as(g)
+                             for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+                grads = TrainParams(*grads)
+                loss = mesh.all_reduce(sse.detach().clone(), "dp") / (n_pix * 3.0)
+                new_params = TrainParams(*((p - lr * g).detach()
+                                           for p, g in zip(leaves, grads)))
+            return new_params, loss, grads
 
     return step

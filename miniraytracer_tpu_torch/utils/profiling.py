@@ -12,6 +12,10 @@ device's own trace:
 The trace is read from the profiler's raw events
 (`prof.profiler.kineto_results.events()`): building its Python event list
 takes minutes for the million launches of a train step.
+
+`span(name)` marks a part of the program's host work in that trace, beside
+the kernels and on their clock; the fused frame and the fused train step
+carry spans named `mrt.<layer>[.<part>]` (PERF.md, section 3, lists them).
 """
 
 from __future__ import annotations
@@ -20,9 +24,23 @@ import contextlib
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+import torch.autograd.profiler as _autograd_profiler
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from miniraytracer_tpu_torch.utils.device import resolve
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that records `name` as a span of the running torch profiler
+    (a `record_function`: its trace holds it beside the operators and
+    kernels, on their clock); with no profiler running, one shared no-op
+    context, so the program records and allocates nothing for tracing.
+    `torch.profiler.profile` sets the flag read here, for every thread."""
+    if _autograd_profiler._is_profiler_enabled:
+        return record_function(name)
+    return _NO_SPAN
 
 
 class Trace:
