@@ -805,6 +805,36 @@ def compare_launch(bounce_ad, args, res, gen, where, ext=None, images=None):
     return out
 
 
+def per_call_scan_forward(bounce_ad, meta, cfg, outer, tables, f0, i0, k0, pix, sb, keep=True,
+                          candidate=None, images=None):
+    """The forward scan one call of `bounce_ad.ad_step_fwd` a launch (the
+    kernel, for CUDA tensors), each launch's entry state (and candidate rows,
+    with `candidate`) copied into the residual first: the reference that the
+    planned scan (`bounce_ad.FwdPlan`) equals bit for bit. Returns ((f, i,
+    k), residual or None), as `bounce_ad.scan_forward`."""
+    n, dev = f0.shape[1], f0.device
+    residual = None
+    if keep:
+        residual = (torch.empty((outer, bounce_ad.RES_HI - bounce_ad.RES_LO, n),
+                                dtype=torch.float32, device=dev),
+                    torch.empty((outer, bounce_ad.NJ, n), dtype=torch.int32, device=dev),
+                    torch.empty((outer, n), dtype=torch.int32, device=dev))
+        if candidate is not None:
+            residual += (torch.empty((outer, bounce_ad.ext_rows(meta), n), dtype=torch.float32,
+                                     device=dev),)
+    f, i, k = f0, i0, k0
+    for t in range(outer):
+        ext = None if candidate is None else candidate.rows(f, i)
+        if keep:
+            residual[0][t].copy_(f[bounce_ad.RES_LO:bounce_ad.RES_HI])
+            residual[1][t].copy_(i)
+            residual[2][t].copy_(k)
+            if ext is not None:
+                residual[3][t].copy_(ext)
+        f, i, k = bounce_ad.ad_step_fwd(meta, cfg, tables, t, f, i, k, pix, sb, ext, images)
+    return (f, i, k), residual
+
+
 def launch_states(mrt, bounce, bounce_ad, scene, w, h, spp, bounces, plain):
     """(meta, cfg, outer, tables, pix, sb, first state, residual of a whole
     forward scan) of a scene on its device."""
@@ -876,7 +906,7 @@ def train_phases(mrt, bounce, bounce_ad, dev, card_line):
     step = mrt.make_train_step(width=w, height=h, max_bounces=bounces, spp_step=spp_step)
     params0 = params = mrt.extract_params(scene)
     torch.cuda.synchronize()
-    bounce_ad.fwd_launches = bounce_ad.bwd_launches = 0
+    bounce_ad.fwd_launches = bounce_ad.bwd_launches = bounce_ad.fwd_plan_launches = 0
     losses = []
     for i in range(n_steps):
         # lr: the loss is a mean over pixels and channels, so its curvature in
@@ -886,6 +916,7 @@ def train_phases(mrt, bounce, bounce_ad, dev, card_line):
         losses.append(float(loss))
         check(all(torch.isfinite(g).all().item() for g in grads), f"step {i}: grads not finite")
     fwd_launches, bwd_launches = bounce_ad.fwd_launches, bounce_ad.bwd_launches
+    plan_launches = bounce_ad.fwd_plan_launches
     # Step i draws its own 128 samples a pixel, and the AD path clamps no
     # sample's luminance, so the loss of a step carries the noise of its
     # sample set and the losses of different steps do not compare. "Falling"
@@ -907,6 +938,7 @@ def train_phases(mrt, bounce, bounce_ad, dev, card_line):
     check(held_last < held_first, "the loss on held-out samples did not fall over the steps")
     check(fwd_launches == n_steps * outer and bwd_launches == n_steps * outer,
           "the train step did not launch each kernel once per scan step")
+    check(plan_launches == fwd_launches, "a train step's B2 launch went around its scan's plan")
     check(all(p.is_cuda for p in params), "params left the card")
 
     # time a step (lr 0: the same work every time)
@@ -967,6 +999,14 @@ def train_phases(mrt, bounce, bounce_ad, dev, card_line):
     fwd_one = lambda: bounce_ad.ad_step_fwd(meta, cfg, tables, t_mid, f_mid, res_i[t_mid],
                                             res_k[t_mid], pix, sb)
     parent_equal(kernels, "bounce_ad", fwd_one, f"B2 at launch {t_mid}, every row")
+    planned = bounce_ad.scan_forward(meta, cfg, outer, tables, *state, pix, sb)
+    check(equal_outputs(planned, per_call_scan_forward(bounce_ad, meta, cfg, outer, tables,
+                                                       *state, pix, sb)),
+          "B2's planned scan differs from its launches one call at a time")
+    print(f"    B2's planned scan ({outer} launches, one `FwdPlan`): the last state and every "
+          "launch's residual equal to a call of `ad_step_fwd` a launch and its copies, bit "
+          "for bit")
+    del planned
     parent_equal(kernels, "bounce_ad", lambda: bounce_ad.scan_forward(
         meta, cfg, outer, tables, *state, pix, sb, keep=True),
         "B2 over the whole scan, every launch's state and the last")

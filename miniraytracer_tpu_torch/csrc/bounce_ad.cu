@@ -52,10 +52,11 @@
 //
 // What bounds them on this card: per-lane ALU work and warp divergence, as in
 // the fused render; the state traffic (19+3+1 words in and out per lane per
-// launch, 13+3+1+19 in and 19 out for the backward) is what `k_sub` sub-steps
-// per launch amortise. The forward runs as the fused render does: a
-// persistent grid of 128-thread blocks whose threads take lanes from a work
-// counter, the scene tables staged in shared memory, no local memory. The
+// launch, and the 14+3+1 of the residual out where the scan keeps it; 14+3+1+19
+// in and 19 out for the backward) is what `k_sub` sub-steps per launch
+// amortise. The forward runs as the fused render does: a persistent grid of
+// 128-thread blocks whose threads take lanes from a work counter, the scene
+// tables staged in shared memory, no local memory. The
 // backward runs one thread a lane on a grid of 128-thread blocks that covers
 // the lanes once, and keeps the launch's entry states and bounce records in
 // local memory, in arrays as long as the launch's sub-steps: K_MAIN (the
@@ -78,7 +79,9 @@
 
 namespace {
 
-constexpr int NF = 19, NJ = 3, NRES = 13;
+constexpr int NF = 19, NJ = 3;
+// residual float rows: ro rd time beta rad alive (ops/bounce_ad.py RES_LO:RES_HI)
+constexpr int NRES = 14;
 // float rows (ops/bounce_ad.py A_*)
 constexpr int A_SUM = 0, A_RO = 3, A_RD = 6, A_TIME = 9, A_BETA = 10, A_RAD = 13, A_ALIVE = 16,
               A_NV = 17, A_RAYS = 18;
@@ -262,16 +265,20 @@ __device__ __forceinline__ ExtCand load_ext(const float* __restrict__ e, int n, 
 // A persistent grid (physics.cuh): each thread takes a lane from the work
 // counter, runs its `k_sub` sub-steps and takes the next, so no block waits on
 // a tail wave; with STAGED the scene tables are read from shared memory.
-// (threads, 1), as B1: the staged fused instance compiles to the same 89
-// registers either way, and the unstaged one (tables past the budget) keeps
-// no spill (92 registers against 80 with 16 B spilled)
+// With `res_f` (a scan that keeps its residual) a thread also stores the
+// lane's entry state, as it read it, into res_f (NRES, n) = f rows
+// A_RO..A_ALIVE, res_i (3, n) and res_k (n); with null it stores nothing.
+// (threads, 1), as B1: both fused instances, staged and unstaged (tables past
+// the budget), compile to 96 registers and no spill (a bound of 80 registers
+// spilled 16 B of the unstaged one)
 template <bool EXT, bool EXT_MAT, bool IMAGE, bool STAGED>
 __global__ void __launch_bounds__(MRT_AD_THREADS, 1)
 ad_step_fwd_kernel(Tables tb_in, AdParams P, Atlas atlas, const float* __restrict__ f_in,
                    const int* __restrict__ i_in, const int* __restrict__ k_in,
                    const int* __restrict__ pix_in, const int* __restrict__ sb_in,
                    const float* __restrict__ ext_in, float* __restrict__ f_out,
-                   int* __restrict__ i_out, int* __restrict__ k_out, int* __restrict__ work) {
+                   int* __restrict__ i_out, int* __restrict__ k_out, float* __restrict__ res_f,
+                   int* __restrict__ res_i, int* __restrict__ res_k, int* __restrict__ work) {
   MRT_DYNAMIC_SHARED(smem);
   Tables tb = tb_in;
   if (STAGED) tb = stage_tables(tb_in, P, smem);
@@ -284,6 +291,13 @@ ad_step_fwd_kernel(Tables tb_in, AdParams P, Atlas atlas, const float* __restric
     float nvalid = f_in[A_NV * n + lane];
     float rays = f_in[A_RAYS * n + lane];
     const ExtCand ext = load_ext<EXT, EXT_MAT>(ext_in, n, lane);
+    if (res_f != nullptr) {  // the entry state as it came in: the backward's residual
+#pragma unroll
+      for (int r = 0; r < NRES; ++r) res_f[r * n + lane] = f_in[(A_RO + r) * n + lane];
+#pragma unroll
+      for (int r = 0; r < NJ; ++r) res_i[r * n + lane] = i_in[r * n + lane];
+      res_k[lane] = k_in[lane];
+    }
     for (int j = 0; j < P.k_sub; ++j)
       ad_substep<EXT, EXT_MAT, IMAGE>(tb, P, ext, atlas, pix, sampbase, P.t_step * P.k_sub + j,
                                       s, summ, nvalid, rays, nullptr);
@@ -1206,28 +1220,69 @@ int read_mode(const int* xp, const AdParams& P, const uint32_t* texels, Atlas& a
 
 constexpr int INVALID_VALUE = 1;  // cudaErrorInvalidValue
 
+template <bool E, bool EM, bool I>
+struct Mode {
+  static constexpr bool EXT = E, EXT_MAT = EM, IMAGE = I;
+};
+
+// fn(Mode<EXT, EXT_MAT, IMAGE>{}) for the instance of a read_mode `mode` (>= 0)
+template <typename Fn>
+int with_mode(int mode, Fn fn) {
+  switch (mode) {
+    case 0: return fn(Mode<false, false, false>{});
+    case 1: return fn(Mode<true, false, false>{});
+    case 2: return fn(Mode<true, true, false>{});
+    case 3: return fn(Mode<true, false, true>{});
+    default: return fn(Mode<true, true, true>{});
+  }
+}
+
+// The parameter blocks of a launch read into P and atlas: its mode
+// (read_mode), or -1 where they are not valid.
+int read_launch(const int* ip, const int* xp, const uint32_t* texels, AdParams& P, Atlas& atlas) {
+  return read_params(ip, P) ? read_mode(xp, P, texels, atlas) : -1;
+}
+
 template <bool EXT, bool EXT_MAT, bool IMAGE, bool STAGED>
 Grid fwd_grid(const AdParams& P) {
   return persistent_grid(ad_step_fwd_kernel<EXT, EXT_MAT, IMAGE, STAGED>, MRT_AD_THREADS,
                          STAGED ? stage_bytes(P) : 0, P.n);
 }
 
+// The blocks of a forward launch of this instance (staged where the tables fit).
 template <bool EXT, bool EXT_MAT, bool IMAGE>
-int launch_fwd(const Tables& tb, const AdParams& P, const Atlas& atlas, const float* f_in,
-               const int* i_in, const int* k_in, const int* pix, const int* sb, const float* ext,
-               float* f_out, int* i_out, int* k_out, int* work, void* stream) {
-  cudaMemsetAsync(work, 0, sizeof(int), (cudaStream_t)stream);
+int fwd_blocks(const AdParams& P) {
+  return stage_bytes(P) > 0 ? fwd_grid<EXT, EXT_MAT, IMAGE, true>(P).blocks
+                            : fwd_grid<EXT, EXT_MAT, IMAGE, false>(P).blocks;
+}
+
+// What a forward launch reads and writes on the device: the state in, the
+// lanes, the candidate, the state out, the residual (null: not stored) and
+// the work counter, zeroed before the launch.
+struct FwdIO {
+  const float* f_in;
+  const int *i_in, *k_in, *pix, *sb;
+  const float* ext;
+  float* f_out;
+  int *i_out, *k_out;
+  float* res_f;
+  int *res_i, *res_k, *work;
+};
+
+template <bool EXT, bool EXT_MAT, bool IMAGE>
+int launch_fwd(const Tables& tb, const AdParams& P, const Atlas& atlas, const FwdIO& io,
+               int blocks, void* stream) {
   const int smem = stage_bytes(P);
   if (smem > 0) {
-    const Grid g = fwd_grid<EXT, EXT_MAT, IMAGE, true>(P);
     auto kernel = ad_step_fwd_kernel<EXT, EXT_MAT, IMAGE, true>;
-    MRT_LAUNCH(kernel, g.blocks, MRT_AD_THREADS, smem, stream, tb, P, atlas, f_in, i_in, k_in,
-               pix, sb, ext, f_out, i_out, k_out, work);
+    MRT_LAUNCH(kernel, blocks, MRT_AD_THREADS, smem, stream, tb, P, atlas, io.f_in, io.i_in,
+               io.k_in, io.pix, io.sb, io.ext, io.f_out, io.i_out, io.k_out, io.res_f, io.res_i,
+               io.res_k, io.work);
   } else {
-    const Grid g = fwd_grid<EXT, EXT_MAT, IMAGE, false>(P);
     auto kernel = ad_step_fwd_kernel<EXT, EXT_MAT, IMAGE, false>;
-    MRT_LAUNCH(kernel, g.blocks, MRT_AD_THREADS, 0, stream, tb, P, atlas, f_in, i_in, k_in, pix,
-               sb, ext, f_out, i_out, k_out, work);
+    MRT_LAUNCH(kernel, blocks, MRT_AD_THREADS, 0, stream, tb, P, atlas, io.f_in, io.i_in,
+               io.k_in, io.pix, io.sb, io.ext, io.f_out, io.i_out, io.k_out, io.res_f, io.res_i,
+               io.res_k, io.work);
   }
   return (int)cudaGetLastError();
 }
@@ -1275,35 +1330,80 @@ extern "C" {
 
 // One scan step forward: f (19, n), ist (3, n), keys (n) -> *_out. `work` is
 // one int of device memory, the work counter, which the call zeroes on the
-// stream.
+// stream; the grid is sized by the occupancy API on each call.
 int mrt_ad_step_fwd(const float* sph, const float* rect, const float* tri, const float* box,
                     const float* vol, const float* mat, const float* tex, const float* cam,
                     const float* ptab, const float* f_in, const int* i_in, const int* k_in,
                     const int* pix, const int* sb, const float* ext, const uint32_t* texels,
                     float* f_out, int* i_out, int* k_out, const int* ip, const int* xp,
                     void* stream, int* work) {
-  Tables tb{sph, rect, tri, box, vol, mat, tex, cam, ptab};
+  const Tables tb{sph, rect, tri, box, vol, mat, tex, cam, ptab};
   AdParams P;
   Atlas atlas;
-  if (!read_params(ip, P)) return INVALID_VALUE;
-  const int mode = read_mode(xp, P, texels, atlas);
+  const int mode = read_launch(ip, xp, texels, P, atlas);
   if (mode < 0 || (mode > 0 && ext == nullptr)) return INVALID_VALUE;
   if (P.n <= 0) return 0;
-  switch (mode) {
-    case 0: return launch_fwd<false, false, false>(tb, P, atlas, f_in, i_in, k_in, pix, sb, ext,
-                                                   f_out, i_out, k_out, work, stream);
-    case 1: return launch_fwd<true, false, false>(tb, P, atlas, f_in, i_in, k_in, pix, sb, ext,
-                                                  f_out, i_out, k_out, work, stream);
-    case 2: return launch_fwd<true, true, false>(tb, P, atlas, f_in, i_in, k_in, pix, sb, ext,
-                                                 f_out, i_out, k_out, work, stream);
-    case 3: return launch_fwd<true, false, true>(tb, P, atlas, f_in, i_in, k_in, pix, sb, ext,
-                                                 f_out, i_out, k_out, work, stream);
-    default: return launch_fwd<true, true, true>(tb, P, atlas, f_in, i_in, k_in, pix, sb, ext,
-                                                 f_out, i_out, k_out, work, stream);
-  }
+  cudaMemsetAsync(work, 0, sizeof(int), (cudaStream_t)stream);
+  const FwdIO io{f_in, i_in, k_in, pix, sb, ext, f_out, i_out, k_out, nullptr, nullptr, nullptr,
+                 work};
+  return with_mode(mode, [&](auto m) {
+    using M = decltype(m);
+    return launch_fwd<M::EXT, M::EXT_MAT, M::IMAGE>(tb, P, atlas, io,
+                                                    fwd_blocks<M::EXT, M::EXT_MAT, M::IMAGE>(P),
+                                                    stream);
+  });
 }
 
-// The step's backward from its entry state: residual rows res (13, n) = ro rd
+// The blocks of a forward launch for the parameter blocks `ip`, `xp` (and the
+// image atlas `texels` in an image mode), as mrt_ad_step_fwd sizes its grid;
+// -1 where the blocks are not valid.
+int mrt_ad_step_fwd_blocks(const int* ip, const int* xp, const uint32_t* texels) {
+  AdParams P;
+  Atlas atlas;
+  const int mode = read_launch(ip, xp, texels, P, atlas);
+  if (mode < 0) return -1;
+  return with_mode(mode, [&](auto m) {
+    using M = decltype(m);
+    return fwd_blocks<M::EXT, M::EXT_MAT, M::IMAGE>(P);
+  });
+}
+
+// Zeroes `count` work counters on the stream (a scan's, one a launch).
+int mrt_zero_counters(int* work, int count, void* stream) {
+  return (int)cudaMemsetAsync(work, 0, sizeof(int) * (size_t)count, (cudaStream_t)stream);
+}
+
+// One scan step forward from a plan made once a scan (ops/bounce_ad.py::
+// FwdPlan): as mrt_ad_step_fwd, on `blocks` blocks (mrt_ad_step_fwd_blocks)
+// and with `work` zeroed before the call (mrt_zero_counters), so that the
+// call only launches the kernel. With res_f, res_i, res_k (all three or none)
+// the kernel also stores each lane's entry state there: res_f (14, n) = f
+// rows ro rd time beta rad alive, res_i (3, n) = ist, res_k (n) = keys.
+int mrt_ad_step_fwd_planned(const float* sph, const float* rect, const float* tri,
+                            const float* box, const float* vol, const float* mat,
+                            const float* tex, const float* cam, const float* ptab,
+                            const float* f_in, const int* i_in, const int* k_in, const int* pix,
+                            const int* sb, const float* ext, const uint32_t* texels,
+                            float* f_out, int* i_out, int* k_out, float* res_f, int* res_i,
+                            int* res_k, const int* ip, const int* xp, void* stream, int* work,
+                            int blocks) {
+  const Tables tb{sph, rect, tri, box, vol, mat, tex, cam, ptab};
+  AdParams P;
+  Atlas atlas;
+  const int mode = read_launch(ip, xp, texels, P, atlas);
+  if (mode < 0 || (mode > 0 && ext == nullptr)) return INVALID_VALUE;
+  if ((res_i == nullptr) != (res_f == nullptr) || (res_k == nullptr) != (res_f == nullptr))
+    return INVALID_VALUE;
+  if (P.n <= 0) return 0;
+  if (blocks < 1) return INVALID_VALUE;
+  const FwdIO io{f_in, i_in, k_in, pix, sb, ext, f_out, i_out, k_out, res_f, res_i, res_k, work};
+  return with_mode(mode, [&](auto m) {
+    using M = decltype(m);
+    return launch_fwd<M::EXT, M::EXT_MAT, M::IMAGE>(tb, P, atlas, io, blocks, stream);
+  });
+}
+
+// The step's backward from its entry state: residual rows res (14, n) = ro rd
 // time beta rad alive, ist (3, n), keys (n), the candidate ext, cotangent cot
 // (19, n) -> d_f (19, n) and, in an ext mode, d_ext (NE, n) written, d_tab
 // (n_diff) ADDED to.
@@ -1313,25 +1413,17 @@ int mrt_ad_step_bwd(const float* sph, const float* rect, const float* tri, const
                     const int* pix, const int* sb, const float* ext, const uint32_t* texels,
                     const float* cot, float* d_f, float* d_ext, float* d_tab, const int* ip,
                     const int* xp, void* stream) {
-  Tables tb{sph, rect, tri, box, vol, mat, tex, cam, ptab};
+  const Tables tb{sph, rect, tri, box, vol, mat, tex, cam, ptab};
   AdParams P;
   Atlas atlas;
-  if (!read_params(ip, P)) return INVALID_VALUE;
-  const int mode = read_mode(xp, P, texels, atlas);
+  const int mode = read_launch(ip, xp, texels, P, atlas);
   if (mode < 0 || (mode > 0 && (ext == nullptr || d_ext == nullptr))) return INVALID_VALUE;
   if (P.n <= 0) return 0;
-  switch (mode) {
-    case 0: return launch_bwd<false, false, false>(tb, P, atlas, res, i_in, k_in, pix, sb, ext,
-                                                   cot, d_f, d_ext, d_tab, stream);
-    case 1: return launch_bwd<true, false, false>(tb, P, atlas, res, i_in, k_in, pix, sb, ext,
-                                                  cot, d_f, d_ext, d_tab, stream);
-    case 2: return launch_bwd<true, true, false>(tb, P, atlas, res, i_in, k_in, pix, sb, ext,
-                                                 cot, d_f, d_ext, d_tab, stream);
-    case 3: return launch_bwd<true, false, true>(tb, P, atlas, res, i_in, k_in, pix, sb, ext,
-                                                 cot, d_f, d_ext, d_tab, stream);
-    default: return launch_bwd<true, true, true>(tb, P, atlas, res, i_in, k_in, pix, sb, ext,
-                                                 cot, d_f, d_ext, d_tab, stream);
-  }
+  return with_mode(mode, [&](auto m) {
+    using M = decltype(m);
+    return launch_bwd<M::EXT, M::EXT_MAT, M::IMAGE>(tb, P, atlas, res, i_in, k_in, pix, sb, ext,
+                                                    cot, d_f, d_ext, d_tab, stream);
+  });
 }
 
 // The grid of a forward launch of the fused class for the parameter block

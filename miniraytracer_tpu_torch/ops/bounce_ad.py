@@ -71,10 +71,12 @@ RES_LO, RES_HI = A_RO, A_ALIVE + 1
 MAX_SUB_STEPS = 8  # csrc/bounce_ad.cu: MAX_KSUB
 
 # Launch counts of the two CUDA kernels (never the plain versions), in all,
-# and by direction and mode: {("fwd" or "bwd", `step_mode`): launches}.
+# and by direction and mode: {("fwd" or "bwd", `step_mode`): launches}; and
+# the forward launches that went through a scan's launch plan (`FwdPlan`).
 fwd_launches = 0
 bwd_launches = 0
 mode_launches = collections.Counter()
+fwd_plan_launches = 0
 
 
 class StepConfig(NamedTuple):
@@ -300,7 +302,9 @@ def ad_step_bwd_plain(meta, cfg, tables, t_step, f_res, istate, keys, pix, sb,
 # ---------------------------------------------------------------------------
 
 # integer parameter block of the AD kernels (csrc/bounce_ad.cu: AdParamIdx)
+# and the index of its scan step in it (Q_TSTEP)
 _N_IPARAMS = 28
+_Q_TSTEP = 8
 # and their ext-mode block (AdExtIdx): ext, ext_mat, image, n_img, ih, iw
 _N_XPARAMS = 6
 
@@ -374,27 +378,66 @@ def _check_tables(dev, meta, tables):
         raise ValueError("bad Perlin table")
 
 
-def _ext_args(meta, dev, n, ext, images):
-    """(ext pointer, texels pointer, ext-mode block) of a launch, checked."""
+def _check_ext(meta, dev, n, ext):
     if ext is not None:
         _check_lanes(dev, n, ext=(ext, torch.float32, ext_rows(meta)))
     elif meta["image"] or meta.get("ext_mat"):
         raise ValueError("this step needs its candidate rows `ext`")
-    if meta["image"]:
-        if (images is None or images.device != dev or images.dtype != torch.uint32
-                or images.dim() != 3 or not images.is_contiguous()
-                or images.numel() >= 2 ** 31):
-            raise ValueError(f"images must be a contiguous uint32 (I, IH, IW) tensor on {dev}")
-    xp = ext_params(meta, ext is not None, images)
-    return (None if ext is None else ext.data_ptr(),
-            images.data_ptr() if meta["image"] else None, xp)
+
+
+def _image_ptr(meta, dev, images):
+    """The image atlas's pointer of a step with image textures, checked (None
+    without)."""
+    if not meta["image"]:
+        return None
+    if (images is None or images.device != dev or images.dtype != torch.uint32
+            or images.dim() != 3 or not images.is_contiguous()
+            or images.numel() >= 2 ** 31):
+        raise ValueError(f"images must be a contiguous uint32 (I, IH, IW) tensor on {dev}")
+    return images.data_ptr()
+
+
+def _ext_args(meta, dev, n, ext, images):
+    """(ext pointer, texels pointer, ext-mode block) of a launch, checked."""
+    _check_ext(meta, dev, n, ext)
+    return (None if ext is None else ext.data_ptr(), _image_ptr(meta, dev, images),
+            ext_params(meta, ext is not None, images))
+
+
+_PTR, _INTS = ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)
+# (argtypes, restype) of the C functions of csrc/bounce_ad.cu that the wrappers call
+_SIGNATURES = {
+    "mrt_ad_step_fwd": ([_PTR] * 19 + [_INTS] * 2 + [_PTR] * 2, ctypes.c_int),
+    "mrt_ad_step_fwd_planned": ([_PTR] * 22 + [_INTS] * 2 + [_PTR] * 2 + [ctypes.c_int],
+                                ctypes.c_int),
+    "mrt_ad_step_fwd_blocks": ([_INTS] * 2 + [_PTR], ctypes.c_int),
+    "mrt_zero_counters": ([_PTR, ctypes.c_int, _PTR], ctypes.c_int),
+    "mrt_ad_step_bwd": ([_PTR] * 20 + [_INTS] * 2 + [_PTR], ctypes.c_int),
+}
+
+
+def _c_function(lib, name):
+    """`name` of the loaded library of csrc/bounce_ad.cu, typed on its first
+    use (ctypes keeps the function object, and its types, on the library)."""
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = _SIGNATURES[name]
+    return fn
+
+
+def _check(lib, name, rc):
+    if rc != 0:
+        from miniraytracer_tpu_torch.utils import kernels
+
+        raise RuntimeError(f"{name} failed: {kernels.error_string(lib, rc)}")
 
 
 def ad_step_fwd(meta, cfg, tables, t_step, fstate, istate, keys, pix, sb, ext=None,
                 images=None):
     """One scan step (`cfg.k_sub` sub-steps) on the state's device: the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors. `ext` and
-    `images` as in `ad_step_fwd_plain`. Returns (fstate', istate', keys')."""
+    `images` as in `ad_step_fwd_plain`. Returns (fstate', istate', keys').
+    A scan on the card launches through a `FwdPlan` instead."""
     if device.kind(fstate, "fused AD step") == "cpu":
         return ad_step_fwd_plain(meta, cfg, tables, t_step, fstate, istate,
                                  keys, pix, sb, ext, images)
@@ -414,10 +457,7 @@ def ad_step_fwd(meta, cfg, tables, t_step, fstate, istate, keys, pix, sb, ext=No
                            torch.empty_like(keys))
     work = torch.empty((1,), dtype=torch.int32, device=dev)  # zeroed by the launch
     lib = kernels.load("bounce_ad")
-    fn = lib.mrt_ad_step_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 19
-                   + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_void_p] * 2)
-    fn.restype = ctypes.c_int
+    fn = _c_function(lib, "mrt_ad_step_fwd")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*[t.data_ptr() for t in tables], fstate.data_ptr(),
@@ -425,12 +465,103 @@ def ad_step_fwd(meta, cfg, tables, t_step, fstate, istate, keys, pix, sb, ext=No
                 sb.data_ptr(), ext_p, tex_p, f_out.data_ptr(), i_out.data_ptr(),
                 k_out.data_ptr(), (ctypes.c_int * _N_IPARAMS)(*ip),
                 (ctypes.c_int * _N_XPARAMS)(*xp), stream, work.data_ptr())
-    if rc != 0:
-        raise RuntimeError(
-            f"mrt_ad_step_fwd failed: {kernels.error_string(lib, rc)}")
+    _check(lib, "mrt_ad_step_fwd", rc)
     fwd_launches += 1
     mode_launches["fwd", step_mode(meta, ext is not None)] += 1
     return f_out, i_out, k_out
+
+
+class FwdPlan:
+    """The forward launches of one scan on the card, prepared once, so that
+    each launch is one call of `mrt_ad_step_fwd_planned` that enqueues B2
+    and nothing else.
+
+    Once a scan, the plan detaches and checks the tables and the lanes,
+    builds the parameter blocks (a launch changes only the step index in
+    them), reads the stream, sizes the grid (`mrt_ad_step_fwd`'s occupancy
+    query), allocates two sets of outputs that the launches write in turn
+    and one work counter a launch, zeroed by one memset. With `residual`
+    (`scan_forward`'s res_f, res_i, res_k), B2 stores each lane's entry
+    state into launch t's rows itself. With `has_ext`, each launch takes its
+    candidate rows (`ExtCandidate.rows`, the `ext` of `ad_step_fwd`).
+
+    `state` is the first state, then the output of the last launch."""
+
+    def __init__(self, meta, cfg, outer_steps, tables, f0, i0, k0, pix, sb, *,
+                 residual=None, has_ext=False, images=None):
+        from miniraytracer_tpu_torch.utils import kernels
+
+        dev, n = f0.device, f0.shape[1]
+        tables = [t.detach() for t in tables]
+        _check_tables(dev, meta, tables)
+        _check_lanes(dev, n, fstate=(f0, torch.float32, NF), istate=(i0, torch.int32, NJ),
+                     keys=(k0, torch.int32, None), pix=(pix, torch.int32, None),
+                     sb=(sb, torch.int32, None))
+        if not has_ext:
+            _check_ext(meta, dev, n, None)
+        self._ip = (ctypes.c_int * _N_IPARAMS)(*kernel_params(meta, cfg, n, 0, has_ext))
+        self._xp = (ctypes.c_int * _N_XPARAMS)(*ext_params(meta, has_ext, images))
+        self._tex = _image_ptr(meta, dev, images)
+        self._res = (None,) * 3  # (pointer of launch 0's rows, bytes a launch) each
+        if residual is not None:
+            shapes = ((RES_HI - RES_LO, n), (NJ, n), (n,))
+            for r, shape, dtype in zip(residual, shapes, (torch.float32, torch.int32, torch.int32)):
+                if (r.device != dev or r.dtype != dtype or tuple(r.shape) != (outer_steps, *shape)
+                        or not r.is_contiguous()):
+                    raise ValueError(f"the residual's rows must be a contiguous {dtype} tensor "
+                                     f"of shape {(outer_steps, *shape)} on {dev}")
+            self._res = tuple((r.data_ptr(), r.stride(0) * r.element_size()) for r in residual)
+        self.lib = kernels.load("bounce_ad")
+        self._fn = _c_function(self.lib, "mrt_ad_step_fwd_planned")
+        self._blocks = _c_function(self.lib, "mrt_ad_step_fwd_blocks")(
+            self._ip, self._xp, self._tex)
+        if self._blocks < 0:
+            raise ValueError("the forward step's parameter blocks are not valid")
+        outs = [(torch.empty((NF, n), dtype=torch.float32, device=dev),
+                 torch.empty((NJ, n), dtype=torch.int32, device=dev),
+                 torch.empty((n,), dtype=torch.int32, device=dev)) for _ in range(2)]
+        self._work = torch.empty((max(outer_steps, 1),), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            self._stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = _c_function(self.lib, "mrt_zero_counters")(
+                self._work.data_ptr(), self._work.numel(), self._stream)
+        _check(self.lib, "mrt_zero_counters", rc)
+        # every tensor whose pointer a launch passes stays referenced here
+        self._held = (tables, pix, sb, images, residual, outs)
+        self._outs = [(o, tuple(x.data_ptr() for x in o)) for o in outs]
+        self._head = [t.data_ptr() for t in tables]
+        self._lanes = (pix.data_ptr(), sb.data_ptr())
+        self._mode = ("fwd", step_mode(meta, has_ext))
+        self._ext_rows = ext_rows(meta) if has_ext else None
+        self.dev, self.n, self.outer_steps, self.t = dev, n, outer_steps, 0
+        self.state = (f0, i0, k0)
+        self._state_ptrs = tuple(x.data_ptr() for x in self.state)
+
+    def launch(self, ext=None):
+        """Launch the scan's next step (step `t`) from `state`; `state`
+        becomes its output, which is returned. `ext`: the step's candidate
+        rows, in a plan with `has_ext`."""
+        global fwd_launches, fwd_plan_launches
+        t = self.t
+        if t >= self.outer_steps:
+            raise RuntimeError(f"the scan's {self.outer_steps} launches are done")
+        if (ext is not None) != (self._ext_rows is not None):
+            raise ValueError("a launch takes its candidate rows exactly when the plan has_ext")
+        if ext is not None:
+            _check_lanes(self.dev, self.n, ext=(ext, torch.float32, self._ext_rows))
+        out, out_ptrs = self._outs[t % 2]
+        res = [None if r is None else r[0] + t * r[1] for r in self._res]
+        self._ip[_Q_TSTEP] = t
+        rc = self._fn(*self._head, *self._state_ptrs, *self._lanes,
+                      None if ext is None else ext.data_ptr(), self._tex, *out_ptrs, *res,
+                      self._ip, self._xp, self._stream, self._work.data_ptr() + 4 * t,
+                      self._blocks)
+        _check(self.lib, "mrt_ad_step_fwd_planned", rc)
+        self.state, self._state_ptrs, self.t = out, out_ptrs, t + 1
+        fwd_launches += 1
+        fwd_plan_launches += 1
+        mode_launches[self._mode] += 1
+        return out
 
 
 def ad_step_bwd(meta, cfg, tables, t_step, f_res, istate, keys, pix, sb, cot_f,
@@ -468,10 +599,7 @@ def ad_step_bwd(meta, cfg, tables, t_step, f_res, istate, keys, pix, sb, cot_f,
     d_f = torch.empty_like(cot_f)
     d_ext = None if ext is None else torch.empty_like(ext)
     lib = kernels.load("bounce_ad")
-    fn = lib.mrt_ad_step_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 20
-                   + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = _c_function(lib, "mrt_ad_step_bwd")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*[t.data_ptr() for t in tables], f_res.data_ptr(),
@@ -479,9 +607,7 @@ def ad_step_bwd(meta, cfg, tables, t_step, f_res, istate, keys, pix, sb, cot_f,
                 sb.data_ptr(), ext_p, tex_p, cot_f.data_ptr(), d_f.data_ptr(),
                 None if d_ext is None else d_ext.data_ptr(), d_tab.data_ptr(),
                 (ctypes.c_int * _N_IPARAMS)(*ip), (ctypes.c_int * _N_XPARAMS)(*xp), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"mrt_ad_step_bwd failed: {kernels.error_string(lib, rc)}")
+    _check(lib, "mrt_ad_step_bwd", rc)
     bwd_launches += 1
     mode_launches["bwd", step_mode(meta, ext is not None)] += 1
     if d_ext is None:
@@ -503,8 +629,11 @@ def scan_forward(meta, cfg, outer_steps, tables, f0, i0, k0, pix, sb, *,
     step first takes its candidate rows from its entry state, and the
     residual keeps them too: res_e (steps, NE, N) after the other three.
     `images` is the scene's image atlas for a step with image textures.
+
+    On the card the launches go through one `FwdPlan`, and B2 writes the
+    residual's first three parts itself; on the CPU, and with `plain`, each
+    step is a call of the plain step after copies of its entry state.
     Returns ((f, i, k), residual or None)."""
-    step_fwd = ad_step_fwd_plain if plain else ad_step_fwd
     n, dev = f0.shape[1], f0.device
     residual = None
     with profiling.span("mrt.scan.forward"):
@@ -517,18 +646,27 @@ def scan_forward(meta, cfg, outer_steps, tables, f0, i0, k0, pix, sb, *,
             if candidate is not None:
                 residual += (torch.empty((outer_steps, ext_rows(meta), n),
                                          dtype=torch.float32, device=dev),)
-        f, i, k = f0, i0, k0
+        if plain or device.kind(f0, "fused AD step") == "cpu":
+            f, i, k = f0, i0, k0
+            for t in range(outer_steps):
+                ext = None if candidate is None else candidate.rows(f, i)
+                if keep:
+                    for r, x in zip(residual, (f[RES_LO:RES_HI], i, k, ext)):
+                        r[t].copy_(x)
+                with profiling.span("mrt.b2"):
+                    f, i, k = ad_step_fwd_plain(meta, cfg, tables, t, f, i, k, pix, sb, ext,
+                                                images)
+            return (f, i, k), residual
+        plan = FwdPlan(meta, cfg, outer_steps, tables, f0, i0, k0, pix, sb,
+                       residual=None if residual is None else residual[:3],
+                       has_ext=candidate is not None, images=images)
         for t in range(outer_steps):
-            ext = None if candidate is None else candidate.rows(f, i)
-            if keep:
-                residual[0][t].copy_(f[RES_LO:RES_HI])
-                residual[1][t].copy_(i)
-                residual[2][t].copy_(k)
-                if ext is not None:
-                    residual[3][t].copy_(ext)
+            ext = None if candidate is None else candidate.rows(*plan.state[:2])
+            if keep and ext is not None:
+                residual[3][t].copy_(ext)
             with profiling.span("mrt.b2"):
-                f, i, k = step_fwd(meta, cfg, tables, t, f, i, k, pix, sb, ext, images)
-    return (f, i, k), residual
+                plan.launch(ext)
+    return plan.state, residual
 
 
 def scan_backward(meta, cfg, outer_steps, tables, residual, pix, sb, cot_f, *,

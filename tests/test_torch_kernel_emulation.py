@@ -253,6 +253,55 @@ def test_emulated_scan_gradients_match_plain_autograd(emulated, monkeypatch, nam
     assert seen >= 2
 
 
+@pytest.mark.parametrize("name,keep", [
+    ("cornell_box", True), ("cornell_box", False), ("cornell_smoke", True),
+    ("cornell_smoke", False), ("random_spheres", True), ("earth", True)])
+def test_emulated_planned_scan_forward_equals_per_call(emulated, name, keep):
+    """The forward scan through its launch plan (`FwdPlan`: one call of
+    `mrt_ad_step_fwd_planned` a launch, B2 storing the residual itself)
+    against a call of `ad_step_fwd` a launch after the copies of its entry
+    state (`chip_smoke.per_call_scan_forward`), on 12x12 lanes at 2 spp and 6
+    bounces: the last state and every part of the residual equal bit for bit
+    (without `keep`, the last state; no residual), and `fwd_launches` and
+    `fwd_plan_launches` each up by the scan's launches. The fused class at 2
+    sub-steps a launch; random_spheres (ext-material mode) and earth (image
+    mode) at one, with their candidate rows from outside."""
+    import chip_smoke
+
+    scene = _scene(name) if name in SCENES else getattr(tscenes, name)(1.0)
+    w = h = 12
+    spp, bounces = 2, 6
+    cand = images = None
+    if tbounce.can_fuse(scene):
+        meta, tables = tbounce.pack_scene(scene)
+        k_sub = 2
+    else:
+        meta, tables = thybrid.pack_scene_hybrid(
+            scene, thybrid.smem_plan(scene) if thybrid.ext_mat_mode(scene) else None)
+        cand = tad.ExtCandidate(scene)
+        images = scene.images if meta["image"] else None
+        k_sub = 1
+    _, claim, k_sub, outer = tad.scan_plan(spp, bounces, spp * (bounces + 1) + 2, k_sub)
+    cfg = tad.StepConfig(w, h, 8, bounces, spp, claim, k_sub)
+    pix = torch.arange(w * h, dtype=torch.int32)
+    sb = torch.full_like(pix, 3)
+    state = tad.initial_state(scene, pix, sb, spp, width=w, height=h, sq_off=8)
+    fwd0, plan0 = tad.fwd_launches, tad.fwd_plan_launches
+    last, residual = tad.scan_forward(meta, cfg, outer, tables, *state, pix, sb, keep=keep,
+                                      candidate=cand, images=images)
+    assert tad.fwd_launches == fwd0 + outer and tad.fwd_plan_launches == plan0 + outer
+    ref_last, ref_residual = chip_smoke.per_call_scan_forward(
+        tad, meta, cfg, outer, tables, *state, pix, sb, keep, cand, images)
+    assert tad.fwd_launches == fwd0 + 2 * outer and tad.fwd_plan_launches == plan0 + outer
+    assert chip_smoke.equal_outputs(last, ref_last)
+    if keep:
+        assert len(residual) == (3 if cand is None else 4)
+        assert chip_smoke.equal_outputs(residual, ref_residual)
+    else:
+        assert residual is None and ref_residual is None
+    assert float(last[0][tad.A_NV].sum()) == w * h * spp
+
+
 @pytest.mark.parametrize("name", SCENES)
 def test_emulated_fused_render_matches_plain(host_libraries, monkeypatch, name):
     """B1 (`bounce.cu`, which shares `physics.cuh` with the AD kernels):

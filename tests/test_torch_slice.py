@@ -323,9 +323,11 @@ def test_train_step_on_cuda_goes_through_the_kernels():
     step = mrt.make_train_step(width=w, height=h, max_bounces=6, spp_step=2)
     target = torch.full((w * h, 3), 0.25)
     fwd0, bwd0 = bounce_ad.fwd_launches, bounce_ad.bwd_launches
+    plan0 = bounce_ad.fwd_plan_launches
     params, loss, grads = step(mrt.extract_params(scene), scene, target, 0, 0.01)
     outer = bounce_ad.scan_plan(2, 6)[3]
     assert bounce_ad.fwd_launches == fwd0 + outer
+    assert bounce_ad.fwd_plan_launches == plan0 + outer  # every B2 launch through the plan
     assert bounce_ad.bwd_launches == bwd0 + outer
     assert loss.is_cuda and torch.isfinite(loss)
     assert all(g.is_cuda and torch.isfinite(g).all() for g in grads)
@@ -333,6 +335,65 @@ def test_train_step_on_cuda_goes_through_the_kernels():
     # the same scan through the plain versions (the same grey target)
     chip_smoke.compare_scans(mrt, bounce, bounce_ad, scene.to("cuda"), w, h, 2, 6,
                              "cornell_box 24x24")
+
+
+@pytest.mark.cuda
+def test_planned_scan_forward_equals_per_call_on_cuda(monkeypatch):
+    """The forward scan through its launch plan (`bounce_ad.FwdPlan`) against
+    a call of `ad_step_fwd` a launch after the copies of its entry state
+    (`chip_smoke.per_call_scan_forward`), on the Cornell box at 64x64, 16
+    spp, 8 bounces: the last state and every launch's residual equal bit for
+    bit. Then the SSE loss's gradient for every TrainParams leaf through
+    `FusedADScan` (planned) and through the same scan with the per-call
+    forward: B3's inputs are the same, so the two differ only by `d_tab`'s
+    float atomics, within 2e-4 of the leaf's largest entry (chip_smoke's
+    bound for B3's `d_tab` against another build)."""
+    _need_cuda()
+    import chip_smoke
+    from miniraytracer_tpu_torch.ops import bounce_ad
+
+    scene = mrt.scenes.cornell_box(1.0).to("cuda")
+    w = h = 64
+    spp, bounces = 16, 8
+    meta, tables = bounce.pack_scene(scene)
+    _, claim, k_sub, outer = bounce_ad.scan_plan(spp, bounces)
+    cfg = bounce_ad.StepConfig(w, h, 8, bounces, spp, claim, k_sub)
+    pix = torch.arange(w * h, dtype=torch.int32, device="cuda")
+    sb = torch.zeros_like(pix)
+    state = bounce_ad.initial_state(scene, pix, sb, spp, width=w, height=h, sq_off=8)
+    plan0 = bounce_ad.fwd_plan_launches
+    planned = bounce_ad.scan_forward(meta, cfg, outer, tables, *state, pix, sb)
+    assert bounce_ad.fwd_plan_launches == plan0 + outer
+    per_call = chip_smoke.per_call_scan_forward(bounce_ad, meta, cfg, outer, tables, *state,
+                                                pix, sb)
+    assert chip_smoke.equal_outputs(planned, per_call)
+
+    def grads():
+        leaves = mrt.TrainParams(*(p.detach().clone().requires_grad_(True)
+                                   for p in mrt.extract_params(scene)))
+        s, nv, _ = bounce_ad.sample_pixel_sums_fused(
+            mrt.apply_params(scene, leaves), pix, 0, spp, width=w, height=h,
+            max_bounces=bounces)
+        err = torch.where(nv[:, None] > 0, s / nv.clamp_min(1)[:, None] - 0.25, 0.0)
+        return torch.autograd.grad((err * err).sum(), list(leaves), allow_unused=True)
+
+    with_plan = grads()
+    monkeypatch.setattr(
+        bounce_ad, "scan_forward",
+        lambda meta, cfg, outer_steps, tables, f0, i0, k0, pix, sb, *, plain=False, keep=True,
+        candidate=None, images=None: chip_smoke.per_call_scan_forward(
+            bounce_ad, meta, cfg, outer_steps, tables, f0, i0, k0, pix, sb, keep, candidate,
+            images))
+    plan0 = bounce_ad.fwd_plan_launches
+    one_call_a_launch = grads()
+    assert bounce_ad.fwd_plan_launches == plan0
+    seen = 0
+    for leaf, a, b in zip(mrt.TrainParams._fields, with_plan, one_call_a_launch):
+        assert (a is None) == (b is None), leaf
+        if b is not None and float(b.abs().max()) > 0:
+            torch.testing.assert_close(a, b, rtol=0, atol=2e-4 * float(b.abs().max()), msg=leaf)
+            seen += 1
+    assert seen >= 2
 
 
 @pytest.mark.cuda
