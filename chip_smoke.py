@@ -907,6 +907,7 @@ def train_phases(mrt, bounce, bounce_ad, dev, card_line):
     params0 = params = mrt.extract_params(scene)
     torch.cuda.synchronize()
     bounce_ad.fwd_launches = bounce_ad.bwd_launches = bounce_ad.fwd_plan_launches = 0
+    walked0, offered0 = bounce_ad.bwd_lanes_walked(), bounce_ad.bwd_lanes_offered
     losses = []
     for i in range(n_steps):
         # lr: the loss is a mean over pixels and channels, so its curvature in
@@ -917,6 +918,8 @@ def train_phases(mrt, bounce, bounce_ad, dev, card_line):
         check(all(torch.isfinite(g).all().item() for g in grads), f"step {i}: grads not finite")
     fwd_launches, bwd_launches = bounce_ad.fwd_launches, bounce_ad.bwd_launches
     plan_launches = bounce_ad.fwd_plan_launches
+    walked = bounce_ad.bwd_lanes_walked() - walked0
+    offered = bounce_ad.bwd_lanes_offered - offered0
     # Step i draws its own 128 samples a pixel, and the AD path clamps no
     # sample's luminance, so the loss of a step carries the noise of its
     # sample set and the losses of different steps do not compare. "Falling"
@@ -930,7 +933,8 @@ def train_phases(mrt, bounce, bounce_ad, dev, card_line):
           f"params on the same sample sets {same_set}")
     print(f"  held-out sample set {n_steps}: loss {held_first} with the first params, "
           f"{held_last} after {n_steps} updates; launches forward {fwd_launches}, "
-          f"backward {bwd_launches}")
+          f"backward {bwd_launches}; B3 walked {walked} of the {offered} lanes offered "
+          f"({walked / max(offered, 1):.4f}: those alive at their launch's entry)")
     print(f"  wall albedos now {params.tex_c0[:3].tolist()}; last grads, max abs: "
           + ", ".join(f"{k} {float(g.abs().max()):.3g}" for k, g in grads._asdict().items()))
     check(all(np.isfinite(l) for l in losses + same_set + [held_first, held_last]),
@@ -939,6 +943,8 @@ def train_phases(mrt, bounce, bounce_ad, dev, card_line):
     check(fwd_launches == n_steps * outer and bwd_launches == n_steps * outer,
           "the train step did not launch each kernel once per scan step")
     check(plan_launches == fwd_launches, "a train step's B2 launch went around its scan's plan")
+    check(offered == n_steps * outer * w * h and 0 < walked < offered,
+          "B3 did not walk the live lanes of each launch it was offered")
     check(all(p.is_cuda for p in params), "params left the card")
 
     # time a step (lr 0: the same work every time)

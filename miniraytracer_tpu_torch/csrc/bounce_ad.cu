@@ -52,21 +52,45 @@
 //
 // What bounds them on this card: per-lane ALU work and warp divergence, as in
 // the fused render; the state traffic (19+3+1 words in and out per lane per
-// launch, and the 14+3+1 of the residual out where the scan keeps it; 14+3+1+19
-// in and 19 out for the backward) is what `k_sub` sub-steps per launch
-// amortise. The forward runs as the fused render does: a persistent grid of
-// 128-thread blocks whose threads take lanes from a work counter, the scene
-// tables staged in shared memory, no local memory. The
-// backward runs one thread a lane on a grid of 128-thread blocks that covers
-// the lanes once, and keeps the launch's entry states and bounce records in
-// local memory, in arrays as long as the launch's sub-steps: K_MAIN (the
-// train step's 4), 1 (the ext modes) or MAX_KSUB (any other count). Its
+// launch, and the 14+3+1 of the residual out where the scan keeps it; for a
+// live lane of the backward 14+3+1+16 in and 14 out, for a dead one its alive
+// flag) is what `k_sub` sub-steps per launch amortise. The forward runs as
+// the fused render does: a persistent grid of 128-thread blocks whose threads
+// take lanes from a work counter, the scene tables staged in shared memory,
+// no local memory. The backward keeps the launch's entry states and bounce
+// records in local memory, in arrays as long as the launch's sub-steps: K_MAIN (the train
+// step's 4), 1 (the ext modes) or MAX_KSUB (any other count). Its
 // fused-class instances take 128 registers, four blocks an SM. Measured
 // against those choices on the card (PERF.md §6, `time_designs.py --only b3`):
-// a persistent grid whose threads claim lanes from a counter, the tables
-// staged in shared memory, the records held in registers (unrolled, or each
-// replayed again from a compact entry) and more registers a thread were each
-// slower.
+// the tables staged in shared memory, the records held in registers
+// (unrolled, or each replayed again from a compact entry) and more registers
+// a thread were each slower.
+//
+// The backward walks only the lanes alive at its launch's entry. A lane is
+// one pixel's samples one after the other; once its last sample ends it is
+// dead for the rest of the scan (alive never rises again), and a dead lane's
+// step passes its cotangent through and adds nothing to the tables. Fewer
+// than half of a train scan's lane-launches are alive (0.474 on the Cornell
+// box, 0.408 in the smoke box at 500x500, 128 spp, 32 bounces). So the
+// kernel runs a persistent grid of 128-thread blocks, SMs x 4: a block takes
+// tiles of 128 lanes with one atomic a tile, reads their alive flags (one
+// coalesced word a lane, in the residual), queues the live ones in shared
+// memory by a vote and a prefix sum, and walks them back 128 at a time, one a
+// thread, packed into full warps. A dead lane costs a flag read: no state, no
+// replay, no cotangent traffic. The scan carries its cotangent in one buffer
+// (`cot` and `d_f` the same), which a launch reads and writes in place on the
+// lanes it walks and leaves as it is on the others. Against the one-thread-a-
+// lane grid before it, in turns over whole 500x500 scans (PERF.md §6): 0.887
+// of its device time on the Cornell box, 0.812 in the smoke box. Also
+// measured, and slower over the scan: the one-shot grid with each block
+// walking its own tile's live lanes (0.926 / 0.843), a block walking each
+// tile alone as it takes it (0.900 / 0.829: faster where nearly all or very
+// few lanes live, much slower in between), rules that switch between the
+// two by the density of the tiles (0.91-0.97), a block's first tile taken
+// without the counter (0.896) and short rounds spread over the four warps
+// (0.943). The ext modes walk the same way: 2-35% faster than before at
+// 500x500 (their train step's size), 0.5-3 us a launch slower at 64x64, where
+// reading the flags before the walk is not hidden.
 //
 // Build: as bounce.cu (utils/kernels.py), --fmad=false so that the replay
 // takes the decisions the plain version takes.
@@ -1082,14 +1106,17 @@ __device__ void substep_adjoint(const Tables& tb, const AdParams& P, const ExtCa
   g_rad = G_rad;
 }
 
-// KS: the length of the record arrays, at least the launch's sub-steps
+// KS: the length of the record arrays, at least the launch's sub-steps. The
+// lane is alive at the launch's entry. `d_f` holds the cotangent already (it
+// may be `cot` itself): the rows that pass through (sum, nvalid, rays) are
+// left as they are, the others overwritten.
 template <int KS, bool EXT, bool EXT_MAT, bool IMAGE>
 __device__ void lane_backward(const Tables& tb, const AdParams& P, const Atlas& atlas,
                               const float* __restrict__ res, const int* __restrict__ i_in,
                               const int* __restrict__ k_in, const int* __restrict__ pix_in,
                               const int* __restrict__ sb_in, const float* __restrict__ ext_in,
-                              const float* __restrict__ cot, float* __restrict__ d_f,
-                              float* __restrict__ d_ext_out, float* dt, int lane) {
+                              const float* cot, float* d_f, float* __restrict__ d_ext_out,
+                              float* dt, int lane) {
   const int n = P.n;
   const uint32_t pix = (uint32_t)pix_in[lane];
   const int sampbase = sb_in[lane];
@@ -1115,26 +1142,23 @@ __device__ void lane_backward(const Tables& tb, const AdParams& P, const Atlas& 
   for (int j = min(P.k_sub, KS) - 1; j >= 0; --j)
     substep_adjoint<EXT, EXT_MAT, IMAGE>(tb, P, ext, atlas, st[j], rec[j], g_sum, g_ro, g_rd,
                                          g_time, g_beta, g_rad, dt, d_ext);
-  // sum, nvalid and rays enter additively: their cotangent passes through once
-  store3(d_f, A_SUM, n, lane, g_sum);
+  // sum, nvalid and rays enter additively: their cotangent passes through once,
+  // where it already is
   store3(d_f, A_RO, n, lane, g_ro);
   store3(d_f, A_RD, n, lane, g_rd);
   d_f[A_TIME * n + lane] = g_time;
   store3(d_f, A_BETA, n, lane, g_beta);
   store3(d_f, A_RAD, n, lane, g_rad);
   d_f[A_ALIVE * n + lane] = 0.0f;  // alive feeds comparisons only
-  d_f[A_NV * n + lane] = cot[A_NV * n + lane];
-  d_f[A_RAYS * n + lane] = cot[A_RAYS * n + lane];
+  // the candidate's discrete rows (material, its type, the texel index) keep
+  // the zero they hold
   if (EXT) {
     d_ext_out[E_T * n + lane] = d_ext.t;
     store3(d_ext_out, E_N, n, lane, d_ext.n);
-    d_ext_out[E_MAT * n + lane] = 0.0f;
   }
   if (EXT_MAT) {
-    d_ext_out[E_MTYPE * n + lane] = 0.0f;
     d_ext_out[E_MPARAM * n + lane] = d_ext.mparam;
     store3(d_ext_out, E_ALB, n, lane, d_ext.alb);
-    d_ext_out[E_IMG * n + lane] = 0.0f;
   }
 }
 
@@ -1151,28 +1175,104 @@ struct BwdBounds {
   static constexpr int min_blocks = EXT ? 1 : 4;
 };
 
+// B3's counters on the card: the tiles a launch has handed out and its blocks
+// that are done taking them (the last block zeroes both, so that the next
+// launch finds them at zero; launches of one process on one card run one at a
+// time), and the live lanes walked, summed over every launch since the library
+// was loaded (mrt_ad_bwd_lanes_walked).
+__device__ int g_bwd_tiles = 0;
+__device__ unsigned g_bwd_done = 0;
+__device__ unsigned long long g_bwd_walked = 0;
+
+constexpr int B3_WARPS = (MRT_AD_THREADS + MRT_WARP - 1) / MRT_WARP;
+
+// Appends the lanes of the tile [lane0, lane0 + blockDim.x) that are alive at
+// the launch's entry (`alive`: the residual's alive row) to `queue`, in lane
+// order, and returns how many (the same in every thread): a vote a warp, the
+// warps' counts summed in shared memory.
+__device__ __forceinline__ int queue_live(const float* __restrict__ alive, int n, int lane0,
+                                          int* queue, int* warp_live) {
+  const int lane = lane0 + (int)threadIdx.x;
+  const bool live = lane < n && alive[lane] > 0.0f;
+  const int w = (int)threadIdx.x / MRT_WARP, wl = (int)threadIdx.x % MRT_WARP;
+  const unsigned vote = __ballot_sync(0xffffffffu, live);
+  if (wl == 0) warp_live[w] = __popc(vote);
+  __syncthreads();
+  int before = 0, total = 0;
+  for (int i = 0; i < ((int)blockDim.x + MRT_WARP - 1) / MRT_WARP; ++i) {
+    if (i < w) before += warp_live[i];
+    total += warp_live[i];
+  }
+  if (live) queue[before + __popc(vote & ((1u << wl) - 1u))] = lane;
+  __syncthreads();  // the queue written, warp_live read, before either is used again
+  return total;
+}
+
+// A persistent grid (SMs x the blocks an SM holds) that walks only the lanes
+// alive at the launch's entry, packed into full warps: a block takes tiles of
+// blockDim.x lanes from g_bwd_tiles (one atomic a tile), queues their live
+// lanes in shared memory and, whenever the queue holds blockDim.x of them or
+// the tiles have run out, walks blockDim.x of them back, one a thread. A lane
+// dead at entry passes through (substep_adjoint): its rows of `d_f` and
+// `d_ext` are not touched, so `d_f` must hold the cotangent on entry, and
+// `d_ext` zeros on the lanes the kernel does not walk.
 template <int KS, bool EXT, bool EXT_MAT, bool IMAGE>
 __global__ void __launch_bounds__(MRT_AD_THREADS, BwdBounds<EXT>::min_blocks)
 ad_step_bwd_kernel(Tables tb, AdParams P, Atlas atlas, const float* __restrict__ res,
                    const int* __restrict__ i_in, const int* __restrict__ k_in,
                    const int* __restrict__ pix_in, const int* __restrict__ sb_in,
-                   const float* __restrict__ ext_in, const float* __restrict__ cot,
-                   float* __restrict__ d_f, float* __restrict__ d_ext,
-                   float* __restrict__ d_tab) {
+                   const float* __restrict__ ext_in, const float* cot, float* d_f,
+                   float* __restrict__ d_ext, float* __restrict__ d_tab) {
   __shared__ float s_dtab[B3_COPIES * DT_STRIDE];
+  __shared__ int s_queue[2 * MRT_AD_THREADS];
+  __shared__ int s_warp_live[B3_WARPS];
+  __shared__ int s_tile;
+  const int n = P.n, threads = (int)blockDim.x;
+  const int n_tiles = (n + threads - 1) / threads;
   const int n_diff = 4 * P.S + 3 * P.Tc + P.M + 6 * P.X;
   for (int i = threadIdx.x; i < B3_COPIES * DT_STRIDE; i += blockDim.x) s_dtab[i] = 0.0f;
-  __syncthreads();
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   float* dt = s_dtab + (int)(threadIdx.x % B3_COPIES) * DT_STRIDE;
-  if (lane < P.n)
-    lane_backward<KS, EXT, EXT_MAT, IMAGE>(tb, P, atlas, res, i_in, k_in, pix_in, sb_in, ext_in,
-                                           cot, d_f, d_ext, dt, lane);
+  const float* alive = res + (A_ALIVE - A_RO) * n;
+  int queued = 0, walked = 0;
+  bool tiles_left = true;
+  for (;;) {
+    while (tiles_left && queued < threads) {
+      if (threadIdx.x == 0) s_tile = atomicAdd(&g_bwd_tiles, 1);
+      __syncthreads();
+      const int tile = s_tile;
+      if (tile >= n_tiles) {
+        tiles_left = false;
+      } else {
+        queued += queue_live(alive, n, tile * threads, s_queue + queued, s_warp_live);
+      }
+    }
+    if (queued == 0) break;
+    const int take = queued < threads ? queued : threads;
+    if ((int)threadIdx.x < take)
+      lane_backward<KS, EXT, EXT_MAT, IMAGE>(tb, P, atlas, res, i_in, k_in, pix_in, sb_in,
+                                             ext_in, cot, d_f, d_ext, dt,
+                                             s_queue[threadIdx.x]);
+    walked += take;
+    __syncthreads();
+    // the rest (fewer than a round: take is a round where any is left) moves
+    // to the head of the queue
+    queued -= take;
+    if ((int)threadIdx.x < queued) s_queue[threadIdx.x] = s_queue[threads + threadIdx.x];
+    __syncthreads();
+  }
   __syncthreads();
   for (int i = threadIdx.x; i < n_diff; i += blockDim.x) {
     float v = s_dtab[i];
     for (int c = 1; c < B3_COPIES; ++c) v = v + s_dtab[c * DT_STRIDE + i];
     if (v != 0.0f) atomicAdd(d_tab + i, v);
+  }
+  if (threadIdx.x == 0) {
+    if (walked > 0) atomicAdd(&g_bwd_walked, (unsigned long long)walked);
+    __threadfence();
+    if (atomicAdd(&g_bwd_done, 1u) == gridDim.x - 1) {
+      atomicExch(&g_bwd_tiles, 0);
+      atomicExch(&g_bwd_done, 0u);
+    }
   }
 }
 
@@ -1288,15 +1388,19 @@ int launch_fwd(const Tables& tb, const AdParams& P, const Atlas& atlas, const Fw
 }
 
 template <int KS, bool EXT, bool EXT_MAT, bool IMAGE>
+Grid bwd_grid(const AdParams& P) {
+  return persistent_grid(ad_step_bwd_kernel<KS, EXT, EXT_MAT, IMAGE>, MRT_AD_THREADS, 0, P.n);
+}
+
+template <int KS, bool EXT, bool EXT_MAT, bool IMAGE>
 int launch_bwd_ks(const Tables& tb, const AdParams& P, const Atlas& atlas, const float* res,
                   const int* i_in, const int* k_in, const int* pix, const int* sb,
                   const float* ext, const float* cot, float* d_f, float* d_ext, float* d_tab,
                   void* stream) {
-  const int threads = MRT_AD_THREADS;
-  const int blocks = (P.n + threads - 1) / threads;
   auto kernel = ad_step_bwd_kernel<KS, EXT, EXT_MAT, IMAGE>;
-  MRT_LAUNCH(kernel, blocks, threads, 0, stream, tb, P, atlas, res, i_in, k_in, pix, sb, ext, cot,
-             d_f, d_ext, d_tab);
+  const Grid g = bwd_grid<KS, EXT, EXT_MAT, IMAGE>(P);
+  MRT_LAUNCH(kernel, g.blocks, MRT_AD_THREADS, 0, stream, tb, P, atlas, res, i_in, k_in, pix, sb,
+             ext, cot, d_f, d_ext, d_tab);
   return (int)cudaGetLastError();
 }
 
@@ -1405,8 +1509,12 @@ int mrt_ad_step_fwd_planned(const float* sph, const float* rect, const float* tr
 
 // The step's backward from its entry state: residual rows res (14, n) = ro rd
 // time beta rad alive, ist (3, n), keys (n), the candidate ext, cotangent cot
-// (19, n) -> d_f (19, n) and, in an ext mode, d_ext (NE, n) written, d_tab
-// (n_diff) ADDED to.
+// (19, n) -> d_f (19, n) and, in an ext mode, d_ext (NE, n), d_tab (n_diff)
+// ADDED to. Only the lanes alive at entry are walked, and only their rows of
+// d_f and d_ext written: d_f must hold the cotangent on entry, with its alive
+// row zeroed where the caller wants the whole of d_f (a dead lane's cotangent
+// passes through); it may be cot itself, for a cotangent carried in place.
+// d_ext must hold zeros.
 int mrt_ad_step_bwd(const float* sph, const float* rect, const float* tri, const float* box,
                     const float* vol, const float* mat, const float* tex, const float* cam,
                     const float* ptab, const float* res, const int* i_in, const int* k_in,
@@ -1444,25 +1552,23 @@ void mrt_ad_step_fwd_grid(const int* ip, int* out) {
 
 // The grid of a backward launch of the fused class for `ip`, as
 // mrt_ad_step_fwd_grid reports the forward's: blocks an SM holds, SMs, blocks
-// (one thread a lane), threads a block, dynamic shared memory (none).
+// (persistent), threads a block, dynamic shared memory (none).
 void mrt_ad_step_bwd_grid(const int* ip, int* out) {
   AdParams P;
   read_params(ip, P);
-  Grid g{0, 0, 0};
-  int dev = 0;
-  if (P.k_sub == K_MAIN)
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &g.per_sm, ad_step_bwd_kernel<K_MAIN, false, false, false>, MRT_AD_THREADS, 0);
-  else
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &g.per_sm, ad_step_bwd_kernel<MAX_KSUB, false, false, false>, MRT_AD_THREADS, 0);
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&g.sms, cudaDevAttrMultiProcessorCount, dev);
+  const Grid g = P.k_sub == K_MAIN ? bwd_grid<K_MAIN, false, false, false>(P)
+                                   : bwd_grid<MAX_KSUB, false, false, false>(P);
   out[0] = g.per_sm;
   out[1] = g.sms;
-  out[2] = (P.n + MRT_AD_THREADS - 1) / MRT_AD_THREADS;
+  out[2] = g.blocks;
   out[3] = MRT_AD_THREADS;
   out[4] = 0;
+}
+
+// The live lanes B3 has walked on the current device since the library was
+// loaded, into *out; synchronises with the device. Returns the cudaError_t.
+int mrt_ad_bwd_lanes_walked(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_bwd_walked, sizeof(unsigned long long));
 }
 
 const char* mrt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -90,6 +90,33 @@ static inline int atomicAdd(int* p, int v) {
   return old;
 }
 
+static inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  unsigned old = *p;
+  *p = old + v;
+  return old;
+}
+
+static inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  unsigned long long old = *p;
+  *p = old + v;
+  return old;
+}
+
+template <typename T>
+static inline T atomicExch(T* p, T v) {
+  T old = *p;
+  *p = v;
+  return old;
+}
+
+static inline void __threadfence() {}
+
+template <typename T>
+static inline cudaError_t cudaMemcpyFromSymbol(void* dst, const T& symbol, size_t bytes) {
+  memcpy(dst, &symbol, bytes);
+  return 0;
+}
+
 static inline cudaError_t cudaMemsetAsync(void* p, int value, size_t bytes, cudaStream_t) {
   memset(p, value, bytes);
   return 0;

@@ -7,12 +7,13 @@ sum, valid count), which is what the SSE loss consumes. One scan step is
 - forward: kernel `mrt_ad_step_fwd` (`csrc/bounce_ad.cu`): `k_sub` sub-steps
   of bounce + completion merge + claim-gated regeneration on (rows, N) lane
   state;
-- backward: kernel `mrt_ad_step_bwd`: replays the sub-steps from the saved
-  entry state (the counter-based RNG makes the replay exact) and applies the
-  adjoint of the step, derived by hand, giving the cotangent of the carried
-  lane state and of the differentiable scene-table entries (`diff_indices`:
-  sphere centres and radii, triangle base vertices, material parameters,
-  texture colours), summed over lanes.
+- backward: kernel `mrt_ad_step_bwd`: for each lane alive at the step's
+  entry (a dead lane passes its cotangent through), replays the sub-steps
+  from the saved entry state (the counter-based RNG makes the replay exact)
+  and applies the adjoint of the step, derived by hand, giving the cotangent
+  of the carried lane state and of the differentiable scene-table entries
+  (`diff_indices`: sphere centres and radii, triangle base vertices, material
+  parameters, texture colours), summed over lanes.
 
 Each kernel has a plain PyTorch version: `_pixel_step_math` (built from
 `bounce.bounce_physics`) and `ad_step_bwd_plain` (`torch.autograd.grad`
@@ -71,12 +72,15 @@ RES_LO, RES_HI = A_RO, A_ALIVE + 1
 MAX_SUB_STEPS = 8  # csrc/bounce_ad.cu: MAX_KSUB
 
 # Launch counts of the two CUDA kernels (never the plain versions), in all,
-# and by direction and mode: {("fwd" or "bwd", `step_mode`): launches}; and
-# the forward launches that went through a scan's launch plan (`FwdPlan`).
+# and by direction and mode: {("fwd" or "bwd", `step_mode`): launches}; the
+# forward launches that went through a scan's launch plan (`FwdPlan`); and
+# the lanes offered to B3 (n a launch), of which it walks those alive at the
+# launch's entry (`bwd_lanes_walked`, counted on the card).
 fwd_launches = 0
 bwd_launches = 0
 mode_launches = collections.Counter()
 fwd_plan_launches = 0
+bwd_lanes_offered = 0
 
 
 class StepConfig(NamedTuple):
@@ -413,6 +417,7 @@ _SIGNATURES = {
     "mrt_ad_step_fwd_blocks": ([_INTS] * 2 + [_PTR], ctypes.c_int),
     "mrt_zero_counters": ([_PTR, ctypes.c_int, _PTR], ctypes.c_int),
     "mrt_ad_step_bwd": ([_PTR] * 20 + [_INTS] * 2 + [_PTR], ctypes.c_int),
+    "mrt_ad_bwd_lanes_walked": ([ctypes.POINTER(ctypes.c_ulonglong)], ctypes.c_int),
 }
 
 
@@ -572,47 +577,80 @@ def ad_step_bwd(meta, cfg, tables, t_step, f_res, istate, keys, pix, sb, cot_f,
     `ext` is given. `d_tab`, when given, is a float32 accumulator that the
     table cotangents are ADDED to (and returned). The kernel sums lanes with
     floating-point atomics, so `d_tab` varies from run to run by about 1e-6
-    relative; `d_ext` is written lane by lane."""
+    relative; `d_ext` is written lane by lane. A lane dead at the step's
+    entry passes its cotangent through, with the alive row zeroed, and gives
+    a zero `d_ext`: on the card B3 does not walk it, so `d_f` starts as a
+    copy of `cot_f` and `d_ext` as zeros (`scan_backward` carries its
+    cotangent in place instead)."""
     if device.kind(f_res, "fused AD step") == "cpu":
         out = ad_step_bwd_plain(meta, cfg, tables, t_step, f_res, istate, keys, pix,
                                 sb, cot_f, ext, images)
         d_new = out[1]
         return (out[0], d_new if d_tab is None else d_tab.add_(d_new), *out[2:])
+    if d_tab is None:
+        d_tab = torch.zeros((n_diff(meta),), dtype=torch.float32, device=f_res.device)
+    d_f = cot_f.clone(memory_format=torch.contiguous_format)
+    d_f[A_ALIVE] = 0.0
+    d_ext = None if ext is None else torch.zeros_like(ext)
+    _launch_bwd(meta, cfg, tables, t_step, f_res, istate, keys, pix, sb, cot_f, d_f, d_tab,
+                ext, d_ext, images)
+    if d_ext is None:
+        return d_f, d_tab
+    return d_f, d_tab, d_ext
+
+
+def _launch_bwd(meta, cfg, tables, t_step, f_res, istate, keys, pix, sb, cot, d_f, d_tab,
+                ext, d_ext, images):
+    """One launch of B3 (`mrt_ad_step_bwd`) on CUDA tensors, checked. It walks
+    only the lanes alive at the step's entry and writes only their rows of
+    `d_f` and `d_ext`: `d_f` holds the cotangent on entry (it may be `cot`
+    itself), `d_ext` zeros; `d_tab` is added to."""
     from miniraytracer_tpu_torch.utils import kernels
 
-    global bwd_launches
+    global bwd_launches, bwd_lanes_offered
     dev, n = f_res.device, f_res.shape[1]
     tables = [t.detach() for t in tables]
     nd = n_diff(meta)
     _check_tables(dev, meta, tables)
-    if d_tab is None:
-        d_tab = torch.zeros((nd,), dtype=torch.float32, device=dev)
     _check_lanes(dev, n, f_res=(f_res, torch.float32, RES_HI - RES_LO),
                  istate=(istate, torch.int32, NJ),
                  keys=(keys, torch.int32, None), pix=(pix, torch.int32, None),
-                 sb=(sb, torch.int32, None), cot_f=(cot_f, torch.float32, NF))
+                 sb=(sb, torch.int32, None), cot=(cot, torch.float32, NF),
+                 d_f=(d_f, torch.float32, NF))
     if (d_tab.device != dev or d_tab.dtype != torch.float32
             or tuple(d_tab.shape) != (nd,) or not d_tab.is_contiguous()):
         raise ValueError(f"d_tab must be a float32 vector of {nd} on {dev}")
     ip = kernel_params(meta, cfg, n, t_step, ext is not None)
     ext_p, tex_p, xp = _ext_args(meta, dev, n, ext, images)
-    d_f = torch.empty_like(cot_f)
-    d_ext = None if ext is None else torch.empty_like(ext)
+    if ext is not None:
+        _check_lanes(dev, n, d_ext=(d_ext, torch.float32, ext.shape[0]))
     lib = kernels.load("bounce_ad")
     fn = _c_function(lib, "mrt_ad_step_bwd")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*[t.data_ptr() for t in tables], f_res.data_ptr(),
                 istate.data_ptr(), keys.data_ptr(), pix.data_ptr(),
-                sb.data_ptr(), ext_p, tex_p, cot_f.data_ptr(), d_f.data_ptr(),
+                sb.data_ptr(), ext_p, tex_p, cot.data_ptr(), d_f.data_ptr(),
                 None if d_ext is None else d_ext.data_ptr(), d_tab.data_ptr(),
                 (ctypes.c_int * _N_IPARAMS)(*ip), (ctypes.c_int * _N_XPARAMS)(*xp), stream)
     _check(lib, "mrt_ad_step_bwd", rc)
     bwd_launches += 1
+    bwd_lanes_offered += n
     mode_launches["bwd", step_mode(meta, ext is not None)] += 1
-    if d_ext is None:
-        return d_f, d_tab
-    return d_f, d_tab, d_ext
+
+
+def bwd_lanes_walked(dev="cuda") -> int:
+    """The live lanes B3 has walked on `dev` since its library was loaded (a
+    counter on the card, which this reads and so waits for). Against
+    `bwd_lanes_offered`, the share of the lanes B3 walks."""
+    from miniraytracer_tpu_torch.utils import kernels
+
+    lib = kernels.load("bounce_ad")
+    out = ctypes.c_ulonglong(0)
+    with torch.cuda.device(dev):
+        rc = _c_function(lib, "mrt_ad_bwd_lanes_walked")(ctypes.byref(out))
+    _check(lib, "mrt_ad_bwd_lanes_walked", rc)
+    return int(out.value)
 
 
 # ---------------------------------------------------------------------------
@@ -679,8 +717,8 @@ def scan_backward(meta, cfg, outer_steps, tables, residual, pix, sb, cot_f, *,
     Returns one gradient per table of `tables`, None for the tables that hold
     no differentiable entry."""
     res_f, res_i, res_k = residual[:3]
-    cot = cot_f.contiguous()
-    dev = cot.device
+    dev = cot_f.device
+    plain = plain or device.kind(cot_f, "fused AD step") == "cpu"
     with profiling.span("mrt.scan.backward"):
         # the index tensors first: their host-to-device copies would
         # otherwise make the host wait for the whole loop below
@@ -689,6 +727,17 @@ def scan_backward(meta, cfg, outer_steps, tables, residual, pix, sb, cot_f, *,
             with profiling.span("mrt.wait.indices"):  # a pageable copy waits
                 didx[name] = torch.as_tensor(idx, dtype=torch.int64, device=dev)
         d_tab = torch.zeros((n_diff(meta),), dtype=torch.float32, device=dev)
+        if plain:
+            cot = cot_f.contiguous()
+        else:
+            # one buffer carries the cotangent through every launch: B3 reads
+            # and writes a live lane's rows in place and leaves a dead lane's
+            # where they are. A lane dead at a launch's entry was dead at every
+            # later launch's, which the walk met first, so d_ext still holds
+            # the zeros it started with on that lane.
+            cot = cot_f.clone(memory_format=torch.contiguous_format)
+            d_ext = (None if candidate is None else
+                     torch.zeros((ext_rows(meta), cot.shape[1]), dtype=torch.float32, device=dev))
         for t in reversed(range(outer_steps)):
             ext = None if candidate is None else residual[3][t]
             args = (meta, cfg, tables, t, res_f[t], res_i[t], res_k[t], pix, sb, cot)
@@ -696,9 +745,10 @@ def scan_backward(meta, cfg, outer_steps, tables, residual, pix, sb, cot_f, *,
                 if plain:
                     out = ad_step_bwd_plain(*args, ext, images)
                     d_tab += out[1]
+                    cot = out[0]
                 else:
-                    out = ad_step_bwd(*args, d_tab, ext, images)
-            cot = out[0]
+                    _launch_bwd(*args, cot, d_tab, ext, d_ext, images)
+                    out = (cot, d_tab, d_ext)
             if candidate is not None:
                 candidate.pullback(res_f[t], res_i[t], out[2], cot)
         grads = [None] * len(tables)

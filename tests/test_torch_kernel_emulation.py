@@ -143,8 +143,10 @@ def _bwd_scan_case(lib, scene, k_sub, w, at=None):
     `k_sub` sub-steps a launch (at the launches `at`, or at every one), from
     the plain scan's states and a seeded cotangent: every entry of `d_f` (and
     `d_ext`) within 2e-3*|plain| + 2e-4 of its lane's largest, `d_tab` within
-    1e-4 of its largest entry. Its grid (`mrt_ad_step_bwd_grid`) covers the
-    lanes once, one thread a lane, with no dynamic shared memory. Blocks have
+    1e-4 of its largest entry. Its grid (`mrt_ad_step_bwd_grid`) is
+    persistent: the blocks an SM holds times the SMs, no more than the tiles
+    of lanes, with no dynamic shared memory; its blocks walk every lane alive
+    at the launch's entry, which `bwd_lanes_walked` counts. Blocks have
     one thread here, so a block's sums of the table cotangents hold one lane;
     the card's blocks of 128 lanes are held by chip_smoke.py (phases 6, 7,
     28: `d_tab` against the plain version's and the parent build's).
@@ -167,16 +169,18 @@ def _bwd_scan_case(lib, scene, k_sub, w, at=None):
     cfg = tad.StepConfig(w, h, 8, bounces, spp, claim, k)
     per_sm, sms, blocks, threads, smem = _grid(lib, "mrt_ad_step_bwd_grid",
                                                tad.kernel_params(meta, cfg, n, 0, ext_mode))
-    assert blocks * threads >= n > (blocks - 1) * threads and smem == 0, (blocks, threads)
+    assert blocks == min(per_sm * sms, -(-n // threads)) and smem == 0, (blocks, threads)
     pix = torch.arange(n, dtype=torch.int32)
     sb = torch.zeros_like(pix)
     f, i, kk = tad.initial_state(scene, pix, sb, spp, width=w, height=h, sq_off=8)
     rs = np.random.default_rng(k_sub)
     bwd0, touched = tad.bwd_launches, 0
+    walked0, live = tad.bwd_lanes_walked(), 0
     for t in range(max(at) + 1):
         args = (meta, cfg, tables, t)
         xa = (cand.rows(f, i), images) if ext_mode else ()
         if t in at:
+            live += int((f[tad.A_ALIVE] > 0).sum())
             cot = torch.as_tensor(rs.normal(size=(tad.NF, n)).astype(np.float32))
             res = f[tad.RES_LO:tad.RES_HI].contiguous()
             out_p = tad.ad_step_bwd_plain(*args, res, i, kk, pix, sb, cot, *xa)
@@ -191,6 +195,7 @@ def _bwd_scan_case(lib, scene, k_sub, w, at=None):
                 touched += int((tp != 0).sum())
         f, i, kk = tad.ad_step_fwd_plain(*args, f, i, kk, pix, sb, *xa)
     assert tad.bwd_launches == bwd0 + len(at)
+    assert tad.bwd_lanes_walked() == walked0 + live
     if len(at) == outer:
         assert float(f[tad.A_NV].sum()) == n * spp
     return touched

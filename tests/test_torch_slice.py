@@ -396,6 +396,96 @@ def test_planned_scan_forward_equals_per_call_on_cuda(monkeypatch):
     assert seen >= 2
 
 
+def _walk_b3_in_place(bounce_ad, meta, cfg, outer, tables, pix, sb, residual, ext_rows=None):
+    """B3 over a whole scan on the card, launch by launch as `scan_backward`
+    carries it (the cotangent in one buffer; `d_ext` zeroed once, with
+    `ext_rows`), from a seeded cotangent with a zero alive row. At each
+    launch: a launch into a `d_f` that holds a marker leaves the marker on
+    every row of the lanes dead at entry; the in-place launch leaves their
+    rows as they were and equals the per-call `ad_step_bwd` bit for bit
+    (`d_ext` too, zero on dead lanes). Returns the live entries of the
+    residual's alive rows and the B3 launches made a scan launch (three)."""
+    import chip_smoke
+
+    res_f, res_i, res_k = residual[:3]
+    n = res_f.shape[2]
+    alive = res_f[:, bounce_ad.A_ALIVE - bounce_ad.RES_LO] > 0
+    assert alive[0].all() and not alive[-1].any()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cot = torch.randn((bounce_ad.NF, n), device="cuda", generator=gen)
+    cot[bounce_ad.A_ALIVE] = 0.0
+    d_tab = torch.zeros((bounce_ad.n_diff(meta),), device="cuda")
+    d_ext = None if ext_rows is None else torch.zeros((ext_rows, n), device="cuda")
+    for t in reversed(range(outer)):
+        args = (meta, cfg, tables, t, res_f[t], res_i[t], res_k[t], pix, sb)
+        ext = None if ext_rows is None else residual[3][t]
+        ref = bounce_ad.ad_step_bwd(*args, cot, None, ext)
+        dead = ~alive[t]
+        marked = torch.full_like(cot, 7.0)
+        bounce_ad._launch_bwd(*args, cot, marked, torch.zeros_like(d_tab), ext,
+                              None if ext is None else torch.zeros_like(ext), None)
+        assert bool((marked[:, dead] == 7.0).all()), t
+        before = cot.clone()
+        bounce_ad._launch_bwd(*args, cot, cot, d_tab, ext, d_ext, None)
+        assert torch.equal(cot[:, dead], before[:, dead]), t
+        assert chip_smoke.equal_outputs(cot, ref[0]), t
+        if ext is not None:
+            assert not bool(d_ext[:, dead].any()), t
+            assert chip_smoke.equal_outputs(d_ext, ref[2]), t
+    return int(alive.sum()), 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cornell_box", "cornell_smoke"])
+def test_b3_walks_only_live_lanes_on_cuda(name):
+    """B3 walks only the lanes alive at its launch's entry, on a 64x64 scan
+    at 4 spp and 8 bounces whose last launches hold no live lane: the loss
+    and gradients through `FusedADScan` (the cotangent carried in place)
+    equal `plain=True`'s at `chip_smoke.compare_scans`' tolerances;
+    `_walk_b3_in_place` holds each launch's rows; `bwd_lanes_walked` grows by
+    the live entries of the residual's alive rows at each launch made."""
+    _need_cuda()
+    import chip_smoke
+    from miniraytracer_tpu_torch.ops import bounce_ad
+
+    scene = getattr(mrt.scenes, name)(1.0).to("cuda")
+    w, spp, bounces = 64, 4, 8
+    chip_smoke.compare_scans(mrt, bounce, bounce_ad, scene, w, w, spp, bounces, name)
+    meta, cfg, outer, tables, pix, sb, _, residual = chip_smoke.launch_states(
+        mrt, bounce, bounce_ad, scene, w, w, spp, bounces, False)
+    walked0, offered0 = bounce_ad.bwd_lanes_walked(), bounce_ad.bwd_lanes_offered
+    live, launches = _walk_b3_in_place(bounce_ad, meta, cfg, outer, tables, pix, sb, residual)
+    assert bounce_ad.bwd_lanes_walked() - walked0 == launches * live
+    assert bounce_ad.bwd_lanes_offered - offered0 == launches * outer * w * w
+    assert live < outer * w * w
+
+
+@pytest.mark.cuda
+def test_b3_ext_walk_leaves_dead_lanes_d_ext_zero_on_cuda():
+    """The hybrid-ext scan of random_spheres (ext-material mode, one sub-step
+    a launch) at 64x64, 2 spp, 8 bounces: walked in place by
+    `_walk_b3_in_place`, `d_ext` reads zero on the lanes dead at each
+    launch's entry and equals the per-call B3's."""
+    _need_cuda()
+    from miniraytracer_tpu_torch.ops import bounce_ad
+
+    scene = mrt.scenes.random_spheres(1.0).to("cuda")
+    w, spp, bounces = 64, 2, 8
+    plan = hybrid.smem_plan(scene) if hybrid.ext_mat_mode(scene) else None
+    meta, tables = hybrid.pack_scene_hybrid(scene, plan)
+    tables = [t.detach() for t in tables]
+    _, claim, k_sub, outer = bounce_ad.scan_plan(spp, bounces, 0, 1)
+    cfg = bounce_ad.StepConfig(w, w, 8, bounces, spp, claim, k_sub)
+    pix = torch.arange(w * w, dtype=torch.int32, device="cuda")
+    sb = torch.zeros_like(pix)
+    state = bounce_ad.initial_state(scene, pix, sb, spp, width=w, height=w, sq_off=8)
+    cand = bounce_ad.ExtCandidate(scene)
+    _, residual = bounce_ad.scan_forward(meta, cfg, outer, tables, *state, pix, sb,
+                                         candidate=cand)
+    _walk_b3_in_place(bounce_ad, meta, cfg, outer, tables, pix, sb, residual,
+                      residual[3].shape[1])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("w", [24, 64])
 @pytest.mark.parametrize("name", ["random_spheres", "triangles", "earth", "book2_final"])
